@@ -1,0 +1,50 @@
+"""Model architecture descriptor, mirroring the JAX package's ``configs/base.py``.
+
+Only the fields the ported (dense decoder) path reads are kept; they carry
+the JAX package's names and defaults so that a parity test can compare
+the two configs field by field.  ``numerics`` holds one ``AMRNumerics``
+design point for every matmul of the model.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+from repro_torch.numerics import AMRNumerics
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPattern:
+    """Heterogeneous depth as repeated groups of block kinds: ``kinds`` is
+    one group's mixer sequence, repeated ``n_repeat`` times."""
+
+    kinds: tuple[str, ...]
+    n_repeat: int
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.kinds) * self.n_repeat
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    sliding_window: int = 0              # >0: width for 'swa' layers
+    pattern: LayerPattern | None = None  # None -> homogeneous default_mixer
+    mlp_act: Literal["swiglu", "geglu", "gelu"] = "swiglu"
+    tie_embeddings: bool = True
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"
+    numerics: AMRNumerics = AMRNumerics("exact")
+    default_mixer: str = "full"

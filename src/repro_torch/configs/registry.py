@@ -1,0 +1,26 @@
+"""Arch registry: ``--arch <id>`` resolution for the port's launcher."""
+from __future__ import annotations
+
+import importlib
+
+from .base import ModelConfig
+
+_MODULES = {
+    "gemma-2b": "gemma_2b",
+}
+
+ARCH_NAMES = list(_MODULES)
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; the port knows: {sorted(_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_reduced_config(name: str) -> ModelConfig:
+    return _module(name).reduced()

@@ -1,0 +1,7 @@
+"""Dense decoder of the port: layers, attention with a per-slot KV cache,
+and the model entry points."""
+from .model import decode_step, forward, group_structure, init_cache, init_params, \
+    prefill_with_cache
+
+__all__ = ["forward", "decode_step", "init_params", "init_cache", "group_structure",
+           "prefill_with_cache"]

@@ -1,0 +1,238 @@
+"""LM assembly for the dense decoder: init, forward, prefill and decode.
+
+The port of the dense part of the JAX package's ``models/model.py``.  The
+parameter tree keeps the JAX layout, so that both packages can compute on
+the same weights (``convert.params_from_numpy``):
+
+  {"embed": (V, D), "final_norm": (D,),
+   "layers": ({"ln1", "ln2", "attn": {...}, "mlp": {...}},)}
+
+``layers`` holds one dict per layer kind of a group, its leaves stacked
+over the group's ``n_repeat`` copies.  Where the JAX package scans over the
+stacked copies, this module loops in Python.  Decode caches mirror the same
+grouping: one ``KVCache`` per kind, leaves stacked over ``n_repeat``.
+
+Every matmul of every layer runs under ``cfg.numerics``; the LM head stays
+exact.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+
+from . import attention as attn
+from .layers import embed, mlp, rms_norm, unembed
+from .tree import tree_map
+
+_ATTENTION_KINDS = ("full",)
+
+
+def group_structure(cfg: ModelConfig) -> tuple[tuple[str, ...], int]:
+    """(kinds within one group, n_repeat)."""
+    if cfg.pattern is not None:
+        kinds, n_repeat = cfg.pattern.kinds, cfg.pattern.n_repeat
+    else:
+        kinds, n_repeat = (cfg.default_mixer,), cfg.n_layers
+    unported = [k for k in kinds if k not in _ATTENTION_KINDS]
+    if unported:
+        raise NotImplementedError(
+            f"layer kinds {unported} of {cfg.name} are not ported yet; the port runs "
+            f"{_ATTENTION_KINDS} layers")
+    return kinds, n_repeat
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The parameter tree as (shape, dtype, init std or None for zeros) leaves."""
+    kinds, n_repeat = group_structure(cfg)
+    D, F_ = cfg.d_model, cfg.d_ff
+    HD, KD = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    dt, f32 = _dtype(cfg), torch.float32
+
+    def stacked(*shape):
+        return (n_repeat, *shape)
+
+    def layer() -> dict:
+        a = {
+            "wq": (stacked(D, HD), dt, D ** -0.5),
+            "wk": (stacked(D, KD), dt, D ** -0.5),
+            "wv": (stacked(D, KD), dt, D ** -0.5),
+            "wo": (stacked(HD, D), dt, HD ** -0.5),
+        }
+        if cfg.qk_norm:
+            a["q_norm"] = (stacked(cfg.head_dim), f32, None)
+            a["k_norm"] = (stacked(cfg.head_dim), f32, None)
+        return {
+            "ln1": (stacked(D), f32, None),
+            "ln2": (stacked(D), f32, None),
+            "attn": a,
+            "mlp": {
+                "w_gate": (stacked(D, F_), dt, D ** -0.5),
+                "w_up": (stacked(D, F_), dt, D ** -0.5),
+                "w_down": (stacked(F_, D), dt, F_ ** -0.5),
+            },
+        }
+
+    specs = {
+        "embed": ((cfg.vocab, D), dt, D ** -0.5),
+        "final_norm": ((D,), f32, None),
+        "layers": tuple(layer() for _ in kinds),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ((cfg.vocab, D), dt, D ** -0.5)
+    return specs
+
+
+def _is_spec(node) -> bool:
+    return isinstance(node, tuple) and len(node) == 3 and isinstance(node[1], torch.dtype)
+
+
+def _map_specs(fn, node):
+    if _is_spec(node):
+        return fn(*node)
+    if isinstance(node, dict):
+        return {k: _map_specs(fn, v) for k, v in node.items()}
+    return tuple(_map_specs(fn, v) for v in node)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device: str | torch.device = "cuda") -> dict:
+    """Random weights from a seeded ``torch.Generator`` on ``device``.
+
+    Normal(0, std) per weight, drawn in float32 and cast to ``cfg.dtype``;
+    norm scales start at zero.  The numbers differ from the JAX package's
+    (another generator); ``convert.params_from_numpy`` carries the JAX
+    package's weights over where both must compute on the same ones.
+    """
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(shape, dtype, std):
+        if std is None:
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+        return w.mul_(std).to(dtype)
+
+    return _map_specs(draw, param_specs(cfg))
+
+
+def _layer(params: dict, g: int) -> dict:
+    return tree_map(lambda t: t[g], params)
+
+
+def _attn_kwargs(cfg: ModelConfig) -> dict:
+    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                theta=cfg.rope_theta, qk_norm=cfg.qk_norm, numerics=cfg.numerics,
+                eps=cfg.norm_eps)
+
+
+def _head(cfg: ModelConfig, params: dict) -> torch.Tensor:
+    return params["embed"] if cfg.tie_embeddings else params["lm_head"]
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            last_only: bool = False) -> torch.Tensor:
+    """Full-sequence forward: tokens (B, S) -> logits (B, S, V) (or (B, 1, V)
+    with ``last_only``, sliced before the LM head)."""
+    kinds, n_repeat = group_structure(cfg)
+    x = embed(params["embed"], tokens)
+    for g in range(n_repeat):
+        for i, _kind in enumerate(kinds):
+            lp = _layer(params["layers"][i], g)
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            x = x + attn.attend_full(lp["attn"], h, **_attn_kwargs(cfg))
+            h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + mlp(lp["mlp"], h, cfg.mlp_act, cfg.numerics)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if last_only:
+        x = x[:, -1:, :]
+    return unembed(x, _head(cfg, params))
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device: torch.device,
+               per_slot: bool = False) -> tuple:
+    """One ``KVCache`` per layer kind, leaves stacked over n_repeat.
+
+    ``per_slot=True`` gives each batch row its own position (``length`` of
+    shape (n_repeat, B)): the continuous-batching slot cache.
+    """
+    kinds, n_repeat = group_structure(cfg)
+
+    def one(_kind):
+        c = attn.KVCache.zeros(batch, capacity, cfg.n_kv_heads, cfg.head_dim, _dtype(cfg),
+                               device, per_slot=per_slot)
+        return tree_map(lambda t: t.expand(n_repeat, *t.shape).clone(), c)
+
+    return tuple(one(k) for k in kinds)
+
+
+def _merge_active(old: tuple, new: tuple, active: torch.Tensor) -> tuple:
+    """Keep ``new`` cache state only for active slots; inactive rows retain
+    ``old`` bit for bit (positions do not advance, K/V writes are dropped).
+
+    Leaves are stacked (n_repeat, B, ...); a leaf without a batch axis
+    (a shared scalar position) passes through unmasked.
+    """
+    B = active.shape[0]
+
+    def merge(o, n):
+        if n.dim() >= 2 and n.shape[1] == B:
+            return torch.where(active.reshape((1, B) + (1,) * (n.dim() - 2)), n, o)
+        return n
+
+    return tree_map(merge, old, new)
+
+
+def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor, cache: tuple,
+                active: torch.Tensor | None = None) -> tuple[torch.Tensor, tuple]:
+    """One serving step: token (B, 1) -> (logits (B, 1, V), new cache).
+
+    ``active`` ((B,) bool) is the continuous-batching slot mask: every row
+    computes, but inactive rows' cache writes and position advances are
+    rolled back; their logits are garbage the caller ignores.
+    """
+    kinds, n_repeat = group_structure(cfg)
+    x = embed(params["embed"], token)
+    per_group = []
+    for g in range(n_repeat):
+        new = []
+        for i, _kind in enumerate(kinds):
+            lp = _layer(params["layers"][i], g)
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            y, c = attn.attend_decode(lp["attn"], h, _layer(cache[i], g), **_attn_kwargs(cfg))
+            x = x + y
+            h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + mlp(lp["mlp"], h, cfg.mlp_act, cfg.numerics)
+            new.append(c)
+        per_group.append(tuple(new))
+    new_cache = tree_map(lambda *ls: torch.stack(ls), *per_group)
+    if active is not None:
+        new_cache = _merge_active(cache, new_cache, active)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(x, _head(cfg, params)), new_cache
+
+
+def prefill_with_cache(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                       capacity: int) -> tuple[torch.Tensor, tuple]:
+    """One-shot prefill: last-position logits (B, 1, V) + a ready decode cache."""
+    kinds, n_repeat = group_structure(cfg)
+    x = embed(params["embed"], tokens)
+    per_group = []
+    for g in range(n_repeat):
+        caches = []
+        for i, _kind in enumerate(kinds):
+            lp = _layer(params["layers"][i], g)
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            y, c = attn.attend_prefill(lp["attn"], h, capacity, **_attn_kwargs(cfg))
+            x = x + y
+            h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + mlp(lp["mlp"], h, cfg.mlp_act, cfg.numerics)
+            caches.append(c)
+        per_group.append(tuple(caches))
+    cache = tree_map(lambda *ls: torch.stack(ls), *per_group)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(x[:, -1:, :], _head(cfg, params)), cache

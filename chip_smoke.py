@@ -5,32 +5,43 @@
 
 Phases (any failure raises, and the run exits non-zero):
 
-1. build — compile every CUDA kernel of the main path from ``src/`` with
-   nvcc for sm_90a (one nvcc per source, in parallel); print the build
-   seconds and the card's name and power limit;
+1. build — compile every CUDA kernel of the served paths from ``src/``
+   with nvcc for sm_90a (one nvcc per source, in parallel); print the build
+   seconds and the card's name, power limit and maximum SM clock;
 2. kernels — each kernel against its plain PyTorch version on the card at
-   the main path's shapes: the integer gather kernels bit for bit at
-   border 8 (int16 table in shared memory) and border 14 (int32 table,
-   products beyond int16), the low-rank kernel within
-   1e-5 * max_mn sum_k (|a b| + sum_r |u v|) of its plain version and
-   within K * sigma_{r+1} (plus that slack) of the bit-exact table sums;
-   time kernel, plain version and, for the low-rank kernel, one
-   ``torch.matmul`` on the prebuilt augmented operands (the yardstick);
+   the served paths' shapes: the integer gather kernels bit for bit at
+   border 8 (int16 table) and border 14 (int32 table, products beyond
+   int16), the low-rank kernel within 1e-5 * max_mn sum_k (|a b| +
+   sum_r |u v|) of its plain version and within K * sigma_{r+1} (plus that
+   slack) of the bit-exact table sums, the circuit-replay kernel bit for
+   bit against its plain version and against the gather kernel on the same
+   operands at border 8 and 14, and against the float64 integer product on
+   the exact schedule (border None); time kernel, plain version and, for
+   the low-rank kernel, one ``torch.matmul`` on the prebuilt augmented
+   operands (the yardstick);
 3. reference — reduced gemma-2b in float32 on the card (kernels) and on
-   the CPU (plain versions), same weights: tokens equal, logits within
-   1e-3 * max|logit|;
+   the CPU (plain versions), same weights, under amr_kernel rank 0 and 8
+   and amr_inject: tokens equal, logits within 1e-3 * max|logit|;
 4. serve — full-width gemma-2b (18 layers, d_model 2048, vocab 256000,
-   random weights from seed 0) through ``ServeEngine`` under
-   ``AMRNumerics("amr_kernel", border=8)`` at rank 0 and at rank 8:
-   4 requests, 2 slots, prompt 16, 8 new tokens.  Launch counts are set
-   to 0 just before each run and read just after: rank 0 must launch
-   both gather kernels and not the low-rank one, rank 8 the reverse;
-5. batched vs solo — request 0 at rank 0 served alone (1 slot) gives the
-   same tokens as in the batched run; the logits' max difference is
-   printed (the exact LM head is a cuBLAS product whose order may depend
-   on the batch);
-6. profile — one more run of 2 requests at rank 0 and at rank 8 under
-   ``torch.profiler``: device time by kernel and the device's idle share.
+   random weights from seed 0) through ``ServeEngine``: under
+   ``AMRNumerics("amr_kernel", border=8)`` at rank 0 and at rank 8 (4
+   requests, 2 slots, prompt 16, 8 new tokens) and under
+   ``AMRNumerics("amr_inject", border=8)`` (2 requests, 2 slots, prompt
+   16, 4 new tokens).  Launch counts are set to 0 just before each run and
+   read just after: rank 0 must launch both gather kernels and no other,
+   rank 8 the low-rank kernel only, amr_inject the replay kernel only;
+5. batched vs solo — request 0 served alone (1 slot) at rank 0 and under
+   amr_inject gives the same tokens and the same logits, bit for bit, as
+   in the batched run;
+6. profile — one more run of 2 requests at rank 0, at rank 8 and under
+   amr_inject, under ``torch.profiler``: device time by kernel and the
+   device's idle share.
+
+Bounds: the larger of the bytes over 3.35 TB/s and the operations over the
+peak rate of their type: float32 67 T/s (the H100 SXM data sheet, an FMA
+counted as two), integer and logic 64 results per clock per SM (the CUDA
+C++ Programming Guide's throughput table for compute capability 9.0) x the
+SMs x the maximum SM clock that nvidia-smi reports.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers, and ``{"ok": true, "device": {...}}``.
@@ -50,22 +61,39 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores (no int32 rate is published)
+PEAK_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
+PEAK_FLOAT_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+INT_OPS_PER_CLOCK_PER_SM = 64  # 32-bit integer and logic, compute capability 9.0
 L2_BYTES = 50 * 2**20
 BORDER, RANK = 8, 8
 SLOTS, PROMPT_LEN, GEN, REQUESTS = 2, 16, 8, 4
+INJECT_GEN, INJECT_REQUESTS = 4, 2
 CAPACITY = PROMPT_LEN + GEN
+TRANSPOSE_OPS = 5 * 16 * 6  # 32x32 bit transpose: 5 levels x 16 word pairs x 6 ops
+PLAIN_REPLAY_PAIRS = 1 << 24  # the plain replay's chunk on the card (memory knob only)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+def nvidia_smi(fields: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+def int_ops_per_s(device) -> float:
+    """64 integer results per clock per SM x SMs x the maximum SM clock."""
+    import torch
+
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return INT_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6
 
 
 def time_ms(fn, arg_sets, reps: int) -> float:
@@ -84,9 +112,22 @@ def time_ms(fn, arg_sets, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
+def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
+    """Least ms for the work: bytes over the memory rate or operations over
+    ``ops_per_s``, the peak rate of their type, whichever is larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def replay_ops(inj, words_k: int, out_words: int) -> int:
+    """Integer and logic operations a bit-sliced replay needs: per 32-pair
+    word one LOP3 per PP gate, two per reduction cell (sum and carry) and a
+    full adder (two LOP3s) per final bit into a carry-save accumulator; per
+    output word one 32x32 bit transpose to turn the bit slices into sums."""
+    lw = inj.lowered
+    per_word = (lw.x_idx.shape[0] + 2 * sum(st.in3.shape[0] for st in lw.stages)
+                + 2 * len(lw.final_ids))
+    return per_word * words_k + TRANSPOSE_OPS * out_words
 
 
 def copies(nbytes: int) -> int:
@@ -95,18 +136,19 @@ def copies(nbytes: int) -> int:
 
 # ------------------------------------------------------------------ phases
 def phase_build() -> None:
-    from repro_torch.kernels.amr_matmul.kernel import LIBRARIES
+    from repro_torch.kernels.amr_matmul import kernel
     from repro_torch.kernels.build import build_all
+    from repro_torch.kernels.inject_replay import kernel as rkernel
 
     t0 = time.perf_counter()
-    records = build_all(list(LIBRARIES))
+    records = build_all(list(kernel.LIBRARIES) + list(rkernel.LIBRARIES))
     log(f"[build] {len(records)} CUDA sources in {time.perf_counter() - t0:.1f}s wall "
         + ", ".join(f"{k} {v.seconds:.1f}s" for k, v in records.items()))
     for name, rec in records.items():
         for line in rec.log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    log(f"[card] {card_line()}")
+    log(f"[card] {card_line()}, max SM clock {nvidia_smi('clocks.max.sm')}")
 
 
 def _int8(shape, gen, device):
@@ -122,7 +164,8 @@ def path_shapes(cfg) -> tuple[list, list, dict]:
     fold into the rows."""
     g = cfg.n_heads // cfg.n_kv_heads
     kv, hd = cfg.n_kv_heads, cfg.head_dim
-    dense_kn = [(cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model), (cfg.d_model, kv * hd)]
+    dense_kn = [(cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model), (cfg.d_model, kv * hd),
+                (cfg.d_model, cfg.n_heads * hd)]
     grouped = {"decode qk": (SLOTS * kv, g, hd, CAPACITY),
                "decode pv": (SLOTS * kv, g, CAPACITY, hd),
                "prefill qk": (kv, g * PROMPT_LEN, hd, PROMPT_LEN),
@@ -138,8 +181,11 @@ def phase_kernels(device, cfg) -> dict:
     from repro_torch.kernels.amr_matmul import kernel, ops, ref
 
     gen = torch.Generator(device=device).manual_seed(0)
-    rows: dict[str, list[dict]] = {"lut": [], "grouped": [], "lowrank": []}
+    rows: dict[str, list[dict]] = {"lut": [], "grouped": [], "lowrank": [], "replay": []}
     dense_m, dense_kn, grouped = path_shapes(cfg)
+    int_rate = int_ops_per_s(device)
+    log(f"[kernel] integer rate {int_rate / 1e12:.2f} T/s, float32 rate "
+        f"{PEAK_FLOAT_OPS_PER_S / 1e12:.0f} T/s, memory {PEAK_BYTES_PER_S / 1e12:.2f} TB/s")
 
     # full-LUT gather kernel: dense sites at rank 0
     for border in (8, 14):
@@ -156,7 +202,7 @@ def phase_kernels(device, cfg) -> dict:
                     raise AssertionError(f"LUT kernel differs from plain at border {border}, "
                                          f"{(m, k, n)}: {(got - want).abs().max().item()}")
                 nbytes = m * k + k * n + table.numel() * table.element_size() + 4 * m * n
-                b_ms, b_by = bound(nbytes, 2 * m * n * k)
+                b_ms, b_by = bound(nbytes, 2 * m * n * k, int_rate)
                 args = [(a, b, table) for b in bs]
                 rows["lut"].append(dict(
                     border=border, shape=(m, k, n), table=str(table.dtype).split(".")[-1],
@@ -177,7 +223,7 @@ def phase_kernels(device, cfg) -> dict:
                 raise AssertionError(f"grouped kernel differs from plain at border {border}, "
                                      f"{site} {(g, m, k, n)}")
             nbytes = g * (m * k + k * n + 4 * m * n) + table.numel() * table.element_size()
-            b_ms, b_by = bound(nbytes, 2 * g * m * n * k)
+            b_ms, b_by = bound(nbytes, 2 * g * m * n * k, int_rate)
             rows["grouped"].append(dict(
                 border=border, site=site, shape=(g, m, k, n), max_abs_err=0.0, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None,
@@ -211,7 +257,7 @@ def phase_kernels(device, cfg) -> dict:
             a_aug = torch.cat([fa[..., None], ua], -1).reshape(m, k * (1 + RANK))
             b_aug = torch.cat([fb[:, None, :], vb.transpose(1, 2)], 1).reshape(k * (1 + RANK), n)
             nbytes = m * k + k * n + 2 * u.numel() * 4 + 4 * m * n
-            b_ms, b_by = bound(nbytes, 2 * m * n * k * (1 + RANK))
+            b_ms, b_by = bound(nbytes, 2 * m * n * k * (1 + RANK), PEAK_FLOAT_OPS_PER_S)
             args = [(a, b, u, v) for b in bs]
             rows["lowrank"].append(dict(
                 border=BORDER, rank=RANK, shape=(m, k, n), max_abs_err=err, gap_vs_exact=gap,
@@ -220,10 +266,71 @@ def phase_kernels(device, cfg) -> dict:
                 plain_ms=time_ms(ref.lowrank_matmul_ref, [(a, bs[0], u, v)], 2),
                 library_ms=time_ms(torch.matmul, [(a_aug, b_aug)], 10)))
             del ua, vb, a_aug, b_aug
+    rows["replay"] = replay_kernel_rows(device, dense_m, dense_kn, grouped, int_rate)
     for name, rs in rows.items():
         for r in rs:
             log(f"[kernel] {name} " + json.dumps(r))
     return rows
+
+
+def replay_kernel_rows(device, dense_m, dense_kn, grouped, int_rate) -> list[dict]:
+    """The circuit-replay kernel at every dense and grouped shape of the
+    amr_inject path: bit for bit against its plain version and against the
+    gather kernel (the same schedule's table) at border 8 and 14, and
+    against the float64 integer product on the exact schedule."""
+    import torch
+
+    from repro_torch.core import engine, reduction
+    from repro_torch.kernels.amr_matmul import kernel, ops
+    from repro_torch.kernels.inject_replay import kernel as rkernel
+    from repro_torch.kernels.inject_replay import ref as rref
+
+    gen = torch.Generator(device=device).manual_seed(1)
+
+    def idx(shape):
+        return torch.randint(0, 256, shape, generator=gen, device=device, dtype=torch.int32)
+
+    cases = [(1, m, k, n, False) for m in dense_m for k, n in dense_kn]
+    cases += [(g, m, k, n, True) for g, m, k, n in grouped.values()]
+    exact = engine.compile_injector(reduction.get_schedule(2, None))
+    if exact.max_abs_product != 128 * 128:
+        raise AssertionError(f"exact schedule: max|product| {exact.max_abs_product}")
+    out = []
+    for g, m, k, n, grouped_b in cases:
+        ia = idx((g, m, k))
+        ib = idx((g, k, n) if grouped_b else (k, n))
+        got = rkernel.inject_replay_int32(exact, ia, ib)
+        want = torch.matmul((ia - 128).double(), (ib - 128).double())
+        torch.cuda.synchronize()
+        if not torch.equal(got.double(), want):
+            raise AssertionError(f"replay kernel, exact schedule, {(g, m, k, n)}: differs from "
+                                 f"the integer product")
+        for border in (8, 14):
+            inj = engine.get_injector(2, border)
+            got = rkernel.inject_replay_int32(inj, ia, ib)
+            want = rref.replay_matmul_ref(inj, ia, ib, max_pairs=PLAIN_REPLAY_PAIRS)
+            table = ops.kernel_table(border, device)
+            a8, b8 = (ia - 128).to(torch.int8), (ib - 128).to(torch.int8)
+            lut_out = (kernel.amr_matmul_int8_lut_grouped(a8, b8, table) if grouped_b
+                       else kernel.amr_matmul_int8_lut(a8[0], b8, table)[None])
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"replay kernel differs from plain at border {border}, "
+                                     f"{(g, m, k, n)}: {(got - want).abs().max().item()}")
+            if not torch.equal(got, lut_out):
+                raise AssertionError(f"replay kernel differs from the gather kernel at border "
+                                     f"{border}, {(g, m, k, n)}")
+            out_words = g * m * math.ceil(n / 32)
+            b_ms, b_by = bound(4 * (ia.numel() + ib.numel() + g * m * n),
+                               replay_ops(inj, out_words * k, out_words), int_rate)
+            n_copies = min(copies(4 * ib.numel()), 16)
+            args = [(inj, ia, ib)] + [(inj, ia, idx(tuple(ib.shape))) for _ in range(n_copies - 1)]
+            out.append(dict(
+                border=border, shape=(g, m, k, n), max_abs_err=0.0, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, ms=time_ms(rkernel.inject_replay_int32, args, 10),
+                plain_ms=time_ms(lambda *a: rref.replay_matmul_ref(
+                    *a, max_pairs=PLAIN_REPLAY_PAIRS), [(inj, ia, ib)], 1)))
+    return out
 
 
 def phase_reference(device) -> None:
@@ -234,9 +341,10 @@ def phase_reference(device) -> None:
     from repro_torch.numerics import AMRNumerics
     from repro_torch.serve import Request, ServeEngine
 
-    for rank in (0, RANK):
-        cfg = dataclasses.replace(reduced(), dtype="float32",
-                                  numerics=AMRNumerics("amr_kernel", border=BORDER, rank=rank))
+    for nm in (AMRNumerics("amr_kernel", border=BORDER, rank=0),
+               AMRNumerics("amr_kernel", border=BORDER, rank=RANK),
+               AMRNumerics("amr_inject", border=BORDER)):
+        cfg = dataclasses.replace(reduced(), dtype="float32", numerics=nm)
         params = init_params(cfg, 0, device="cpu")
         out = {}
         for dev in ("cpu", device):
@@ -247,26 +355,29 @@ def phase_reference(device) -> None:
             out[str(dev)] = eng.run()
         cpu, card = out["cpu"], out[str(device)]
         if [c.tokens for c in cpu] != [c.tokens for c in card]:
-            raise AssertionError(f"reduced model at rank {rank}: card tokens differ from CPU")
+            raise AssertionError(f"reduced model under {nm}: card tokens differ from CPU")
         diff = max(float(np.abs(x - y).max()) for c, d in zip(cpu, card)
                    for x, y in zip(c.logits, d.logits))
         top = max(float(np.abs(x).max()) for c in cpu for x in c.logits)
         if not diff <= 1e-3 * top:
-            raise AssertionError(f"reduced model at rank {rank}: logits differ by {diff}")
-        log(f"[reference] reduced gemma-2b f32 rank {rank}: tokens equal, "
+            raise AssertionError(f"reduced model under {nm}: logits differ by {diff}")
+        log(f"[reference] reduced gemma-2b f32 {nm}: tokens equal, "
             f"max |logit diff| card vs CPU {diff:.3g} (max |logit| {top:.3g})")
 
 
 def phase_serve(device, card: str, config) -> dict:
-    """Full-width gemma-2b through ServeEngine at rank 0 and rank 8."""
+    """Full-width gemma-2b through ServeEngine at rank 0, rank 8 and under
+    amr_inject; batched vs solo at rank 0 and under amr_inject."""
     import torch
 
     from repro_torch.kernels.amr_matmul import kernel
+    from repro_torch.kernels.inject_replay import kernel as rkernel
     from repro_torch.models import init_params
     from repro_torch.models.tree import tree_map
     from repro_torch.numerics import AMRNumerics
     from repro_torch.serve import Request, ServeEngine
 
+    all_kernels = kernel.KERNELS + rkernel.KERNELS
     t0 = time.perf_counter()
     params = init_params(config, 0, device=device)
     torch.cuda.synchronize()
@@ -278,37 +389,45 @@ def phase_serve(device, card: str, config) -> dict:
     rng = np.random.default_rng(0)
     prompts = [tuple(int(t) for t in rng.integers(0, config.vocab, PROMPT_LEN))
                for _ in range(REQUESTS)]
-    launches, runs = {}, {}
-    for rank in (0, RANK):
-        cfg = dataclasses.replace(config, numerics=AMRNumerics("amr_kernel", border=BORDER,
-                                                               rank=rank))
-        eng = ServeEngine(cfg, params, n_slots=SLOTS, capacity=CAPACITY, record_logits=True,
-                          device=device)
-        for p in prompts:
-            eng.submit(Request(prompt=p, max_new_tokens=GEN))
-        for k in kernel.KERNELS:
+    runs = {  # label: (numerics, requests, new tokens, the kernels it must launch)
+        "rank 0": (AMRNumerics("amr_kernel", border=BORDER, rank=0), REQUESTS, GEN,
+                   {"amr_matmul_int8_lut", "amr_matmul_int8_lut_grouped"}),
+        f"rank {RANK}": (AMRNumerics("amr_kernel", border=BORDER, rank=RANK), REQUESTS, GEN,
+                         {"amr_matmul_int8"}),
+        "amr_inject": (AMRNumerics("amr_inject", border=BORDER), INJECT_REQUESTS, INJECT_GEN,
+                       {"inject_replay"}),
+    }
+
+    def serve(nm, reqs, gen, n_slots):
+        eng = ServeEngine(dataclasses.replace(config, numerics=nm), params, n_slots=n_slots,
+                          capacity=CAPACITY, record_logits=True, device=device)
+        for p in prompts[:reqs]:
+            eng.submit(Request(prompt=p, max_new_tokens=gen))
+        for k in all_kernels:
             k.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         done = eng.run()
         wall = time.perf_counter() - t0
-        counts = {k.name: k.launches for k in kernel.KERNELS}
-        launches[rank] = counts
-        runs[rank] = done
-        if len(done) != REQUESTS or any(len(c.tokens) != GEN for c in done):
-            raise AssertionError(f"rank {rank}: expected {REQUESTS} completions of {GEN} tokens")
+        return eng, done, wall, {k.name: k.launches for k in all_kernels}
+
+    launches, batched = {}, {}
+    for label, (nm, reqs, gen, uses) in runs.items():
+        eng, done, wall, counts = serve(nm, reqs, gen, SLOTS)
+        launches[label] = counts
+        batched[label] = done[0]
+        if len(done) != reqs or any(len(c.tokens) != gen for c in done):
+            raise AssertionError(f"{label}: expected {reqs} completions of {gen} tokens")
         if any(not 0 <= t < config.vocab for c in done for t in c.tokens):
-            raise AssertionError(f"rank {rank}: token out of range")
+            raise AssertionError(f"{label}: token out of range")
         if not all(np.isfinite(x).all() and x.shape == (config.vocab,)
                    for c in done for x in c.logits):
-            raise AssertionError(f"rank {rank}: non-finite or misshapen logits")
-        uses = ({"amr_matmul_int8_lut", "amr_matmul_int8_lut_grouped"} if rank == 0
-                else {"amr_matmul_int8"})
+            raise AssertionError(f"{label}: non-finite or misshapen logits")
         for name, n in counts.items():
             if (name in uses) != (n > 0):
-                raise AssertionError(f"rank {rank}: kernel {name} launched {n} times")
+                raise AssertionError(f"{label}: kernel {name} launched {n} times")
         tokens = sum(len(c.tokens) for c in done)
-        log(f"[serve] rank {rank} on {card}: {len(done)} requests, {tokens} tokens in "
+        log(f"[serve] {label} on {card}: {len(done)} requests, {tokens} tokens in "
             f"{wall:.3f}s ({tokens / wall:.2f} tok/s end to end); prefill "
             f"{eng.prefill_tokens} prompt tokens in {eng.prefill_seconds:.3f}s "
             f"({eng.prefill_tokens / eng.prefill_seconds:.1f} tok/s); decode "
@@ -317,26 +436,23 @@ def phase_serve(device, card: str, config) -> dict:
             f"{1e3 * eng.decode_seconds / eng.steps_done:.1f} ms/step); peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}")
 
-    # batched vs solo: request 0 at rank 0 alone in a one-slot engine
-    cfg = dataclasses.replace(config, numerics=AMRNumerics("amr_kernel", border=BORDER, rank=0))
-    eng = ServeEngine(cfg, params, n_slots=1, capacity=CAPACITY, record_logits=True,
-                      device=device)
-    eng.submit(Request(prompt=prompts[0], max_new_tokens=GEN))
-    [solo] = eng.run()
-    batched = runs[0][0]
-    diff = max(float(np.abs(x - y).max()) for x, y in zip(batched.logits, solo.logits))
-    if solo.tokens != batched.tokens:
-        raise AssertionError(f"batched {batched.tokens} != solo {solo.tokens}")
-    log(f"[batched-vs-solo] rank 0 request 0: tokens identical {list(solo.tokens)}; "
-        f"max |logit diff| {diff:.3g}")
-    for rank in (0, RANK):
-        profile_serve(device, card, dataclasses.replace(
-            config, numerics=AMRNumerics("amr_kernel", border=BORDER, rank=rank)), params,
-            prompts)
+    # batched vs solo: request 0 alone in a one-slot engine, the same bits
+    for label in ("rank 0", "amr_inject"):
+        nm, _, gen, _ = runs[label]
+        _, [solo], _, _ = serve(nm, 1, gen, 1)
+        diff = max(float(np.abs(x - y).max()) for x, y in zip(batched[label].logits, solo.logits))
+        if solo.tokens != batched[label].tokens or diff != 0.0:
+            raise AssertionError(f"{label} request 0: batched {batched[label].tokens} vs solo "
+                                 f"{solo.tokens}, max |logit diff| {diff}")
+        log(f"[batched-vs-solo] {label} request 0: tokens identical {list(solo.tokens)}; "
+            f"max |logit diff| {diff}")
+    for nm, _, gen, _ in runs.values():
+        profile_serve(device, card, dataclasses.replace(config, numerics=nm), params, prompts,
+                      gen)
     return launches
 
 
-def profile_serve(device, card: str, cfg, params, prompts) -> None:
+def profile_serve(device, card: str, cfg, params, prompts, gen: int) -> None:
     """Device time by kernel over one engine run of SLOTS requests (their
     prefills and decode steps) under torch.profiler, and the device's idle
     share of the run's wall time (which the profiler's own host cost
@@ -349,7 +465,7 @@ def profile_serve(device, card: str, cfg, params, prompts) -> None:
 
     eng = ServeEngine(cfg, params, n_slots=SLOTS, capacity=CAPACITY, device=device)
     for p in prompts[:SLOTS]:
-        eng.submit(Request(prompt=p, max_new_tokens=GEN))
+        eng.submit(Request(prompt=p, max_new_tokens=gen))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -362,7 +478,7 @@ def profile_serve(device, card: str, cfg, params, prompts) -> None:
     busy_us = sum(r[0] for r in rows)
     if busy_us <= 0:
         raise AssertionError("the profiler recorded no device time")
-    ours = sum(r[0] for r in rows if "amr_" in r[2])
+    ours = sum(r[0] for r in rows if "amr_" in r[2] or "inject_replay" in r[2])
     log(f"[profile] {cfg.numerics} on {card}: {SLOTS} prefills + {eng.steps_done} decode "
         f"steps, {wall_us / 1e3:.2f} ms wall, device busy {busy_us / 1e3:.2f} ms "
         f"(idle share {1 - busy_us / wall_us:.3f}), AMR kernels {ours / 1e3:.2f} ms")
@@ -399,21 +515,25 @@ def main() -> int:
     launches = phase_serve(device, card, CONFIG)
 
     from repro_torch.kernels.amr_matmul import kernel
+    from repro_torch.kernels.inject_replay import kernel as rkernel
 
     src = "src/repro_torch/kernels/amr_matmul/csrc/"
     picks = {  # the decode shape each kernel spends most time on at border 8
         "amr_matmul_int8_lut": (rows["lut"][0], src + "lut_matmul.cu",
-                                "src/repro/kernels/amr_matmul/kernel.py:137", 0),
+                                "src/repro/kernels/amr_matmul/kernel.py:137", "rank 0"),
         "amr_matmul_int8_lut_grouped": (rows["grouped"][0], src + "lut_matmul.cu",
-                                        "src/repro/kernels/amr_matmul/kernel.py:175", 0),
+                                        "src/repro/kernels/amr_matmul/kernel.py:175", "rank 0"),
         "amr_matmul_int8": (rows["lowrank"][0], src + "lowrank_matmul.cu",
-                            "src/repro/kernels/amr_matmul/kernel.py:47", RANK),
+                            "src/repro/kernels/amr_matmul/kernel.py:47", f"rank {RANK}"),
+        "inject_replay": (rows["replay"][0],
+                          "src/repro_torch/kernels/inject_replay/csrc/inject_replay.cu",
+                          "src/repro/kernels/inject_replay/kernel.py:81", "amr_inject"),
     }
     out = []
-    for k in kernel.KERNELS:
-        row, source, replaces, rank = picks[k.name]
+    for k in kernel.KERNELS + rkernel.KERNELS:
+        row, source, replaces, label = picks[k.name]
         out.append({"name": k.name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": launches[rank][k.name], "max_abs_err": row["max_abs_err"],
+                    "launches": launches[label][k.name], "max_abs_err": row["max_abs_err"],
                     "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                     "shape": row["shape"]})

@@ -1,7 +1,7 @@
 """Wallace-tree partial-product reduction with exact/approximate cells.
 
-Copied from the JAX package's ``core/reduction.py`` without its pluggable
-DSE-assigner hook: the port only builds the paper's own schedules.
+Copied from the JAX package's ``core/reduction.py``, with its pluggable
+DSE-assigner hook, so a whole-multiplier DSE candidate can be rebuilt here.
 
 Builds a *static schedule*: stages of (cell, input-bit-ids, output-bit-ids)
 until every column holds at most two bits. Bit-accurate evaluation then
@@ -62,12 +62,18 @@ class Schedule:
         return len(self.stages)
 
 
-def build_schedule(n_digits: int, border: int | None) -> Schedule:
+def build_schedule(n_digits: int, border: int | None, assigner=None) -> Schedule:
     """Build the static reduction schedule for one design point.
 
-    Approximate and border columns take the paper's per-column Fig. 3
-    branch-and-bound (``dse.assign_column``); the exact region takes exact
-    FAs on triples, posibits first.
+    ``assigner`` is the pluggable DSE policy for approx/border columns:
+    ``assigner(p, pos_cnt, neg_cnt, err_scaled, allow_exact_fa)`` returns the
+    ``(cell, dp, dn)`` list to instantiate (``err_scaled`` is the accumulated
+    expected error in units of ``2**p``).  ``None`` (the default, and the
+    only policy the ``get_schedule`` cache ever uses) runs the paper's
+    per-column Fig. 3 branch-and-bound (``dse.assign_column``); a replay
+    policy that re-emits a recorded whole-multiplier assignment rebuilds a
+    DSE candidate.  The exact region takes exact FAs on triples, posibits
+    first.
     """
     layout = ppgen.build_pp_layout(n_digits)
     n_pp = layout.n_pp
@@ -110,7 +116,12 @@ def build_schedule(n_digits: int, border: int | None) -> Schedule:
             region_border = border is not None and p == border
 
             chosen: list[tuple[str, int, int]]
-            if region_approx or region_border:
+            if (region_approx or region_border) and assigner is not None:
+                chosen = list(assigner(
+                    p, len(pos_bits), len(neg_bits),
+                    e_abs / Fraction(2**p), region_border,
+                ))
+            elif region_approx or region_border:
                 res = assign_column(
                     len(pos_bits), len(neg_bits),
                     e_abs / Fraction(2**p),

@@ -39,15 +39,22 @@ def lut_matmul_ref(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor) -> tor
 def lowrank_matmul_ref(a: torch.Tensor, b: torch.Tensor, u: torch.Tensor,
                        v: torch.Tensor) -> torch.Tensor:
     """int8 (M, K) @ (K, N) -> float32 A@B + U[A] . V[B], the same dense math
-    as the JAX package's ``ref_lowrank_int8`` (f32 accumulation order differs)."""
-    out = a.float() @ b.float()
-    ia = a.to(torch.int64) + 128
-    ib = b.to(torch.int64) + 128
+    as the JAX package's ``ref_lowrank_int8`` (f32 accumulation order differs).
+
+    Row-independent, as the CUDA kernel is: each row's float32 products are
+    separate calls of one shape, so a row's sums do not depend on how many
+    rows share the call.  The V gather is made once per K chunk for all rows.
+    """
     M, K = a.shape
     N = b.shape[1]
-    step = _k_step((M + N) * u.shape[1])
+    bf = b.float()
+    rows = [a[i:i + 1].float() @ bf for i in range(M)]
+    ia = a.to(torch.int64) + 128
+    ib = b.to(torch.int64) + 128
+    step = _k_step(N * u.shape[1])  # independent of M: a row's sum order is fixed
     for k0 in range(0, K, step):
         ua = u[ia[:, k0:k0 + step]]          # (M, k, r)
         vb = v[ib[k0:k0 + step]]             # (k, N, r)
-        out += torch.einsum("mkr,knr->mn", ua, vb)
-    return out
+        for i in range(M):
+            rows[i] += torch.einsum("mkr,knr->mn", ua[i:i + 1], vb)
+    return torch.cat(rows) if rows else a.new_empty((0, N), dtype=torch.float32)

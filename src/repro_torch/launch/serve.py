@@ -3,9 +3,11 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda --full \
       --requests 8 --slots 4 --prompt-len 16 --gen 8 \
       --numerics amr_kernel --border 8 --rank 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --full --numerics amr_inject
 
 Thin CLI over ``repro_torch.serve.ServeEngine`` with random weights from
-``--seed``.  ``--numerics`` overrides the config's matmul policy.  A warmup
+``--seed``.  ``--numerics`` overrides the config's matmul policy
+(``amr_inject`` replays the paper's schedule at ``--border``).  A warmup
 cycle (default on) first serves one short request so that the kernel
 build and first launches fall outside the timed window; the report then
 separates prefill and steady-state decode rates from end-to-end time.

@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.numerics import AMRNumerics, approx_matmul
+from repro_torch.numerics.approx_matmul import matmul_exact
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, numerics: AMRNumerics | None = None,
@@ -19,7 +20,7 @@ def dense(x: torch.Tensor, w: torch.Tensor, numerics: AMRNumerics | None = None,
     ``site`` labels the call site (e.g. ``"mlp.w_gate"``).
     """
     if numerics is None or numerics.is_exact():
-        return torch.matmul(x, w)
+        return matmul_exact(x, w)
     shape = x.shape
     out = approx_matmul(x.reshape(-1, shape[-1]), w, numerics, site=site)
     return out.reshape(*shape[:-1], w.shape[-1]).to(x.dtype)
@@ -74,5 +75,6 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Logits with the tied table, kept exact: the LM head dominates the
-    vocab-scaled error and the paper's technique targets inner matmuls."""
-    return torch.matmul(x, table.T.to(x.dtype))
+    vocab-scaled error and the paper's technique targets inner matmuls.
+    One product per request, so a request's logits do not depend on the batch."""
+    return matmul_exact(x, table.T.to(x.dtype))

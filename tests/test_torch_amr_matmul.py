@@ -192,3 +192,44 @@ def test_cuda_library_is_keyed_by_its_source(tmp_path):
     src.write_text("// two\n")
     assert lib.path != first
     assert all(shipped.source.is_file() for shipped in tkernel.LIBRARIES)
+
+
+# ------------------------------------------- independence of the batch
+def test_exact_matmul_is_one_call_per_request(monkeypatch):
+    """A 2-D weight takes one ``torch.matmul`` per slice of A's leading
+    (request) dim: a decode step of 3 requests is 3 calls of the shape a
+    solo request makes, and a one-request prefill stays one call."""
+    a, w = _t(_float((3, 5, 24), 1)), _t(_float((24, 40), 2))
+    want = torch.stack([torch.matmul(a[i].clone(), w) for i in range(3)])
+    calls = []
+    real = torch.matmul
+
+    def counting(x, y):
+        calls.append(tuple(x.shape))
+        return real(x, y)
+
+    monkeypatch.setattr(torch, "matmul", counting)
+    got = tapprox.matmul_exact(a, w)
+    assert calls == [(5, 24)] * 3
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    calls.clear()
+    tapprox.matmul_exact(a[:1], w)
+    assert calls == [(5, 24)]
+    calls.clear()
+    tapprox.matmul_exact(a[0], w)
+    assert calls == [(5, 24)]
+
+
+def test_lowrank_plain_version_is_row_independent(monkeypatch):
+    """Each row of the plain low-rank product equals that row computed
+    alone, bit for bit, with K split into several chunks."""
+    from repro_torch.kernels.amr_matmul import ref as tref
+
+    monkeypatch.setattr(tref, "_MAX_ELEMS", 1 << 10)  # 4 k per chunk at N=32, r=8
+    a, b = _int8((7, 40), 3), _int8((40, 32), 4)
+    f = tlut.lowrank_factor(8, 8)
+    u, v = _t(f.u), _t(f.v)
+    batched = tref.lowrank_matmul_ref(_t(a), _t(b), u, v)
+    for i in range(a.shape[0]):
+        np.testing.assert_array_equal(
+            batched[i:i + 1].numpy(), tref.lowrank_matmul_ref(_t(a[i:i + 1]), _t(b), u, v).numpy())

@@ -6,10 +6,10 @@ import).  Run on a GPU machine with
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
-Tolerances: the integer gather kernels are compared bit for bit (also at
-border 14, whose products exceed int16); the low-rank kernel sums the same
-float32 terms as its plain version in another order:
-|kernel - plain| <= 1e-5 * max_mn sum_k (|a b| + sum_r |u v|).
+Tolerances: the integer gather kernels and the circuit-replay kernel are
+compared bit for bit (also at border 14, whose products exceed int16); the
+low-rank kernel sums the same float32 terms as its plain version in another
+order: |kernel - plain| <= 1e-5 * max_mn sum_k (|a b| + sum_r |u v|).
 """
 import dataclasses
 
@@ -18,8 +18,11 @@ import torch
 
 from repro_torch.configs.gemma_2b import reduced
 from repro_torch.core import lut
+from repro_torch.core import engine, reduction
 from repro_torch.kernels.amr_matmul import kernel, ops, ref
 from repro_torch.kernels.build import build_all
+from repro_torch.kernels.inject_replay import kernel as rkernel
+from repro_torch.kernels.inject_replay import ref as rref
 from repro_torch.models import init_params
 from repro_torch.models.tree import tree_map
 from repro_torch.numerics import AMRNumerics
@@ -43,7 +46,7 @@ def _int8(shape, seed, device):
 
 
 def test_kernels_build(cuda, capsys):
-    records = build_all(list(kernel.LIBRARIES))
+    records = build_all(list(kernel.LIBRARIES) + list(rkernel.LIBRARIES))
     with capsys.disabled():
         for name, rec in records.items():
             print(f"\n[build] {name}: {rec.seconds:.1f}s\n{rec.log}")
@@ -107,12 +110,78 @@ def test_wrappers_reject_what_kernels_do_not_take(cuda):
         kernel.amr_matmul_int8_lut(a, b.cpu(), ops.kernel_table(8, cuda))
 
 
+def _idx(shape, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, 256, shape, generator=g, device=device, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("border", [8, 14])
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (2, 2048, 256), (3, 100, 77), (16, 2048, 300),
+                                   (40, 1000, 513)])
+def test_replay_kernel_bitwise(cuda, border, m, k, n):
+    """The replay kernel against its plain version and against the gather
+    kernel on the same schedule's table (the same products)."""
+    inj = engine.get_injector(2, border)
+    ia, ib = _idx((1, m, k), 0, cuda), _idx((k, n), 1, cuda)
+    before = rkernel.REPLAY.launches
+    got = rkernel.inject_replay_int32(inj, ia, ib)
+    assert rkernel.REPLAY.launches == before + 1
+    want = rref.replay_matmul_ref(inj, ia, ib, max_pairs=1 << 22)
+    lut_out = kernel.amr_matmul_int8_lut((ia[0] - 128).to(torch.int8), (ib - 128).to(torch.int8),
+                                         ops.kernel_table(border, cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got[0], lut_out)
+
+
+@pytest.mark.parametrize("g,m,k,n", [(2, 8, 256, 24), (2, 8, 24, 256), (1, 128, 256, 16),
+                                     (5, 3, 70, 33)])
+def test_replay_kernel_grouped_bitwise(cuda, g, m, k, n):
+    inj = engine.get_injector(2, 8)
+    ia, ib = _idx((g, m, k), 2, cuda), _idx((g, k, n), 3, cuda)
+    got = rkernel.inject_replay_int32(inj, ia, ib)
+    want = rref.replay_matmul_ref(inj, ia, ib, max_pairs=1 << 22)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_replay_kernel_exact_schedule_is_the_integer_product(cuda):
+    """border=None replays the exact multiplier: the sums equal the integer
+    matmul, computed in float64 (exact below 2**53)."""
+    inj = engine.compile_injector(reduction.get_schedule(2, None))
+    ia, ib = _idx((1, 16, 2048), 4, cuda), _idx((2048, 2048), 5, cuda)
+    got = rkernel.inject_replay_int32(inj, ia, ib)
+    want = (ia[0] - 128).double() @ (ib - 128).double()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].double(), want)
+
+
+def test_replay_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    inj = engine.get_injector(2, 8)
+    ia, ib = _idx((1, 4, 64), 0, cuda), _idx((64, 8), 1, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        rkernel.inject_replay_int32(inj, ia, ib.t().contiguous().t())
+    with pytest.raises(TypeError, match="int32"):
+        rkernel.inject_replay_int32(inj, ia.long(), ib)
+    with pytest.raises(ValueError, match="devices"):
+        rkernel.inject_replay_int32(inj, ia, ib.cpu())
+
+
 @pytest.mark.parametrize("rank", [0, 8])
 def test_reduced_model_serves_through_kernels(cuda, rank):
     """Reduced gemma-2b under amr_kernel: the card's kernels and the CPU's
     plain versions give the same tokens on the same weights."""
-    cfg = dataclasses.replace(reduced(), dtype="float32",
-                              numerics=AMRNumerics("amr_kernel", border=8, rank=rank))
+    _serve_card_and_cpu(AMRNumerics("amr_kernel", border=8, rank=rank))
+
+
+def test_reduced_model_serves_through_replay_kernel(cuda):
+    before = rkernel.REPLAY.launches
+    _serve_card_and_cpu(AMRNumerics("amr_inject", border=8))
+    assert rkernel.REPLAY.launches > before
+
+
+def _serve_card_and_cpu(numerics):
+    cfg = dataclasses.replace(reduced(), dtype="float32", numerics=numerics)
     params = init_params(cfg, 0, device="cpu")
     outs = {}
     for dev in ("cpu", "cuda"):

@@ -18,30 +18,48 @@ Phases (any failure raises, and the run exits non-zero):
    operands at border 8 and 14, and against the float64 integer product on
    the exact schedule (border None); time kernel, plain version and, for
    the low-rank kernel, one ``torch.matmul`` on the prebuilt augmented
-   operands (the yardstick);
+   operands (the yardstick); the SSD chunked-scan kernel within
+   ``ssd_scan.ref.ssd_error_bound`` of its plain version, per output, in
+   full and split mode, at the mamba2-370m prefill shape (S = 16 in a
+   256-row chunk) and at S = 1024 (4 chunks) with the model's dt, and at
+   S = 1024 with dt scaled so that the state carried from chunk to chunk
+   exceeds the bound a hundredfold (the model's dt decays it to 0 within a
+   chunk, where no check can see it);
 3. reference — reduced gemma-2b in float32 on the card (kernels) and on
    the CPU (plain versions), same weights, under amr_kernel rank 0 and 8
-   and amr_inject: tokens equal, logits within 1e-3 * max|logit|;
+   and amr_inject, and reduced mamba2-370m under exact (SSD kernel in full
+   mode) and amr_kernel rank 0 (split mode): tokens equal, logits within
+   1e-3 * max|logit|;
 4. serve — full-width gemma-2b (18 layers, d_model 2048, vocab 256000,
    random weights from seed 0) through ``ServeEngine``: under
    ``AMRNumerics("amr_kernel", border=8)`` at rank 0 and at rank 8 (4
    requests, 2 slots, prompt 16, 8 new tokens) and under
    ``AMRNumerics("amr_inject", border=8)`` (2 requests, 2 slots, prompt
-   16, 4 new tokens).  Launch counts are set to 0 just before each run and
-   read just after: rank 0 must launch both gather kernels and no other,
-   rank 8 the low-rank kernel only, amr_inject the replay kernel only;
+   16, 4 new tokens).  Then full-width mamba2-370m (48 layers, d_model
+   1024, 32 SSM heads, d_state 128, vocab 50280, random weights from seed
+   0) under rank 0 (4 requests x 8 tokens) and amr_inject (2 x 4).  Launch
+   counts are set to 0 just before each run and read just after: for
+   gemma-2b rank 0 must launch both gather kernels and no other, rank 8
+   the low-rank kernel only, amr_inject the replay kernel only; for
+   mamba2-370m rank 0 both gather kernels and the SSD kernel, amr_inject
+   the replay kernel and the SSD kernel, the SSD kernel 48 times per
+   prefill (once per layer) and never in decode;
 5. batched vs solo — request 0 served alone (1 slot) at rank 0 and under
    amr_inject gives the same tokens and the same logits, bit for bit, as
-   in the batched run;
+   in the batched run, for both models;
 6. profile — one more run of 2 requests at rank 0, at rank 8 and under
-   amr_inject, under ``torch.profiler``: device time by kernel and the
-   device's idle share.
+   amr_inject for gemma-2b, and at rank 0 for mamba2-370m, under
+   ``torch.profiler``: device time by kernel and the device's idle share.
 
 Bounds: the larger of the bytes over 3.35 TB/s and the operations over the
 peak rate of their type: float32 67 T/s (the H100 SXM data sheet, an FMA
 counted as two), integer and logic 64 results per clock per SM (the CUDA
 C++ Programming Guide's throughput table for compute capability 9.0) x the
-SMs x the maximum SM clock that nvidia-smi reports.
+SMs x the maximum SM clock that nvidia-smi reports.  The SSD kernel's
+operations are counted over the rows the input holds (a 16-token prompt is
+16 rows, not the 256 of its padded chunk): the lower triangle of C B^T and
+of its product with x dt, the readout C h in full mode for every chunk
+after the first (h is 0 before it), and the state update.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers, and ``{"ok": true, "device": {...}}``.
@@ -67,6 +85,7 @@ INT_OPS_PER_CLOCK_PER_SM = 64  # 32-bit integer and logic, compute capability 9.
 L2_BYTES = 50 * 2**20
 BORDER, RANK = 8, 8
 SLOTS, PROMPT_LEN, GEN, REQUESTS = 2, 16, 8, 4
+SSD_LONG = 1024  # the longer SSD shape: 4 chunks of 256
 INJECT_GEN, INJECT_REQUESTS = 4, 2
 CAPACITY = PROMPT_LEN + GEN
 TRANSPOSE_OPS = 5 * 16 * 6  # 32x32 bit transpose: 5 levels x 16 word pairs x 6 ops
@@ -139,9 +158,11 @@ def phase_build() -> None:
     from repro_torch.kernels.amr_matmul import kernel
     from repro_torch.kernels.build import build_all
     from repro_torch.kernels.inject_replay import kernel as rkernel
+    from repro_torch.kernels.ssd_scan import kernel as skernel
 
     t0 = time.perf_counter()
-    records = build_all(list(kernel.LIBRARIES) + list(rkernel.LIBRARIES))
+    records = build_all(list(kernel.LIBRARIES) + list(rkernel.LIBRARIES)
+                        + list(skernel.LIBRARIES))
     log(f"[build] {len(records)} CUDA sources in {time.perf_counter() - t0:.1f}s wall "
         + ", ".join(f"{k} {v.seconds:.1f}s" for k, v in records.items()))
     for name, rec in records.items():
@@ -173,7 +194,7 @@ def path_shapes(cfg) -> tuple[list, list, dict]:
     return [SLOTS, PROMPT_LEN], dense_kn, grouped
 
 
-def phase_kernels(device, cfg) -> dict:
+def phase_kernels(device, cfg, mamba_cfg) -> dict:
     """Every kernel against its plain version at the main path's shapes."""
     import torch
 
@@ -181,7 +202,8 @@ def phase_kernels(device, cfg) -> dict:
     from repro_torch.kernels.amr_matmul import kernel, ops, ref
 
     gen = torch.Generator(device=device).manual_seed(0)
-    rows: dict[str, list[dict]] = {"lut": [], "grouped": [], "lowrank": [], "replay": []}
+    rows: dict[str, list[dict]] = {"lut": [], "grouped": [], "lowrank": [], "replay": [],
+                                   "ssd": []}
     dense_m, dense_kn, grouped = path_shapes(cfg)
     int_rate = int_ops_per_s(device)
     log(f"[kernel] integer rate {int_rate / 1e12:.2f} T/s, float32 rate "
@@ -267,6 +289,7 @@ def phase_kernels(device, cfg) -> dict:
                 library_ms=time_ms(torch.matmul, [(a_aug, b_aug)], 10)))
             del ua, vb, a_aug, b_aug
     rows["replay"] = replay_kernel_rows(device, dense_m, dense_kn, grouped, int_rate)
+    rows["ssd"] = ssd_kernel_rows(device, mamba_cfg)
     for name, rs in rows.items():
         for r in rs:
             log(f"[kernel] {name} " + json.dumps(r))
@@ -333,20 +356,108 @@ def replay_kernel_rows(device, dense_m, dense_kn, grouped, int_rate) -> list[dic
     return out
 
 
+def ssd_work(B: int, S: int, H: int, P: int, N: int, chunk: int, split: bool) -> int:
+    """Float32 operations the SSD scan needs for S rows (an FMA counted as
+    two): per chunk of L rows and head, the lower triangle's L (L + 1) / 2
+    pairs take a C.B dot over N and a row of P into y; the state update
+    takes L N P; the readout C h (full mode, after the first chunk) L N P."""
+    ops = 0
+    for ci in range(math.ceil(S / chunk)):
+        L = min(chunk, S - ci * chunk)
+        per_head = L * (L + 1) // 2 * 2 * (N + P) + 2 * L * N * P
+        if not split and ci > 0:
+            per_head += 2 * L * N * P
+        ops += B * H * per_head
+    return ops
+
+
+def ssd_kernel_rows(device, mcfg) -> list[dict]:
+    """The SSD kernel against its plain version, in full and split mode,
+    every output within ``ssd_error_bound`` (the float32 roundings of sums
+    and of the cumulative log decay, relative to the same function of |x|,
+    |b|, |c|, per batch, chunk and head).  Inputs: the mamba2-370m prefill
+    shape (one 16-token prompt, bf16 x, b, c as the conv outputs are) and
+    S = 1024 (4 chunks), with dt as the model makes it; and S = 1024 with
+    dt scaled per head so that a chunk decays the state by exp(-0.5) on
+    average.  With the model's dt a chunk's decay underflows to 0, so only
+    the scaled inputs show the state carried from chunk to chunk: there the
+    carried part of each output (``ssd_carried``) must exceed its bound a
+    hundredfold somewhere, so that a kernel that dropped or mis-scaled the
+    carry would fail."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+    from repro_torch.kernels.ssd_scan import ref as sref
+    from repro_torch.models.ssm import ssm_dims
+
+    dims = ssm_dims(mcfg.d_model, mcfg.ssm)
+    H, P, N, G, Q = dims["n_heads"], mcfg.ssm.head_dim, mcfg.ssm.d_state, mcfg.ssm.n_groups, \
+        mcfg.ssm.chunk
+    gen = torch.Generator(device=device).manual_seed(2)
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, device=device))  # a_log at its init
+    out = []
+    for S, inputs in ((PROMPT_LEN, "model dt"), (SSD_LONG, "model dt"), (SSD_LONG, "carry")):
+        def normal(*shape):
+            return torch.randn(shape, generator=gen, device=device)
+
+        if inputs == "carry":
+            dt = torch.rand((1, S, H), generator=gen, device=device) / (torch.exp(a_log) * Q)
+        else:
+            dt = torch.nn.functional.softplus(normal(1, S, H))  # softplus of a projection
+        args = (normal(1, S, H, P).bfloat16(), dt, a_log, normal(1, S, G, N).bfloat16(),
+                normal(1, S, G, N).bfloat16())
+        for split in (False, True):
+            got = skernel.ssd_scan(*args, Q, split=split)
+            want = sref.ssd_ref(*args, Q, split=split)
+            bounds = sref.ssd_error_bound(*args, Q, split=split)
+            carried = sref.ssd_carried(*args, Q, split=split)
+            torch.cuda.synchronize()
+            err, ratio, carry = 0.0, 0.0, []
+            for g, w, bd, cr in zip(got, want, bounds, carried):
+                if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"SSD kernel S={S} split={split}: shape {g.shape} vs "
+                                         f"{w.shape} or non-finite output")
+                err = max(err, float((g - w).abs().max()))
+                ratio = max(ratio, float(((g - w).abs() / bd).max()))
+                carry.append(float((cr.abs() / bd).max()))
+            if not ratio <= 1.0:
+                raise AssertionError(f"SSD kernel S={S} split={split}: beyond its bound of the "
+                                     f"plain version ({ratio:.3g} x the bound)")
+            # full mode: y and h_final carry; split mode: h_prev and h_final
+            if inputs == "carry" and not min(carry[1:] if split else carry) >= 100.0:
+                raise AssertionError(f"SSD check S={S} split={split}: the carried state is "
+                                     f"not visible above the bound ({carry})")
+            nbytes = sum(t.numel() * t.element_size() for t in args + tuple(got))
+            b_ms, b_by = bound(nbytes, ssd_work(1, S, H, P, N, Q, split), PEAK_FLOAT_OPS_PER_S)
+            out.append(dict(
+                shape=(1, S, H, P, N), inputs=inputs, mode="split" if split else "full",
+                max_abs_err=err, err_over_bound=ratio, carried_over_bound=carry, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                ms=time_ms(lambda *a: skernel.ssd_scan(*a, Q, split=split), [args], 50),
+                plain_ms=time_ms(lambda *a: sref.ssd_ref(*a, Q, split=split), [args], 5)))
+    return out
+
+
 def phase_reference(device) -> None:
     """Reduced gemma-2b, float32: the card's kernels against the CPU's plain versions."""
+    from repro_torch.configs import mamba2_370m
     from repro_torch.configs.gemma_2b import reduced
+    from repro_torch.kernels.ssd_scan import kernel as skernel
     from repro_torch.models import init_params
     from repro_torch.models.tree import tree_map
     from repro_torch.numerics import AMRNumerics
     from repro_torch.serve import Request, ServeEngine
 
-    for nm in (AMRNumerics("amr_kernel", border=BORDER, rank=0),
-               AMRNumerics("amr_kernel", border=BORDER, rank=RANK),
-               AMRNumerics("amr_inject", border=BORDER)):
-        cfg = dataclasses.replace(reduced(), dtype="float32", numerics=nm)
+    cases = [(reduced(), AMRNumerics("amr_kernel", border=BORDER, rank=0)),
+             (reduced(), AMRNumerics("amr_kernel", border=BORDER, rank=RANK)),
+             (reduced(), AMRNumerics("amr_inject", border=BORDER)),
+             (mamba2_370m.reduced(), AMRNumerics("exact")),
+             (mamba2_370m.reduced(), AMRNumerics("amr_kernel", border=BORDER, rank=0))]
+    for base, nm in cases:
+        cfg = dataclasses.replace(base, dtype="float32", numerics=nm)
         params = init_params(cfg, 0, device="cpu")
         out = {}
+        skernel.SSD.launches = 0
         for dev in ("cpu", device):
             eng = ServeEngine(cfg, tree_map(lambda t: t.to(dev), params), n_slots=2,
                               capacity=24, record_logits=True, device=dev)
@@ -361,42 +472,43 @@ def phase_reference(device) -> None:
         top = max(float(np.abs(x).max()) for c in cpu for x in c.logits)
         if not diff <= 1e-3 * top:
             raise AssertionError(f"reduced model under {nm}: logits differ by {diff}")
-        log(f"[reference] reduced gemma-2b f32 {nm}: tokens equal, "
-            f"max |logit diff| card vs CPU {diff:.3g} (max |logit| {top:.3g})")
+        if (cfg.family == "ssm") != (skernel.SSD.launches > 0):
+            raise AssertionError(f"reduced {cfg.name} under {nm}: SSD kernel launched "
+                                 f"{skernel.SSD.launches} times")
+        log(f"[reference] reduced {cfg.name} f32 {nm}: tokens equal, "
+            f"max |logit diff| card vs CPU {diff:.3g} (max |logit| {top:.3g}); SSD kernel "
+            f"launches {skernel.SSD.launches}")
 
 
-def phase_serve(device, card: str, config) -> dict:
-    """Full-width gemma-2b through ServeEngine at rank 0, rank 8 and under
-    amr_inject; batched vs solo at rank 0 and under amr_inject."""
+def serve_model(device, card: str, config, runs: dict, solo: tuple, profiled: tuple,
+                per_prefill: dict) -> dict:
+    """Serve full-width ``config`` through ServeEngine under each numerics of
+    ``runs`` (label: (numerics, requests, new tokens, the kernels it must
+    launch)); the labels in ``solo`` again with request 0 alone, and those
+    in ``profiled`` once more under the profiler.  ``per_prefill`` names
+    kernels that must launch exactly that many times per prefill.  Returns
+    each run's launch counts."""
     import torch
 
     from repro_torch.kernels.amr_matmul import kernel
     from repro_torch.kernels.inject_replay import kernel as rkernel
+    from repro_torch.kernels.ssd_scan import kernel as skernel
     from repro_torch.models import init_params
     from repro_torch.models.tree import tree_map
-    from repro_torch.numerics import AMRNumerics
     from repro_torch.serve import Request, ServeEngine
 
-    all_kernels = kernel.KERNELS + rkernel.KERNELS
+    all_kernels = kernel.KERNELS + rkernel.KERNELS + skernel.KERNELS
     t0 = time.perf_counter()
     params = init_params(config, 0, device=device)
     torch.cuda.synchronize()
     sizes: list[int] = []
     tree_map(lambda t: sizes.append(t.numel()), params)
     n_params = sum(sizes)
-    log(f"[serve] gemma-2b: {n_params / 1e9:.3f} G parameters on {device} in "
+    log(f"[serve] {config.name}: {n_params / 1e9:.3f} G parameters on {device} in "
         f"{time.perf_counter() - t0:.1f}s")
     rng = np.random.default_rng(0)
     prompts = [tuple(int(t) for t in rng.integers(0, config.vocab, PROMPT_LEN))
                for _ in range(REQUESTS)]
-    runs = {  # label: (numerics, requests, new tokens, the kernels it must launch)
-        "rank 0": (AMRNumerics("amr_kernel", border=BORDER, rank=0), REQUESTS, GEN,
-                   {"amr_matmul_int8_lut", "amr_matmul_int8_lut_grouped"}),
-        f"rank {RANK}": (AMRNumerics("amr_kernel", border=BORDER, rank=RANK), REQUESTS, GEN,
-                         {"amr_matmul_int8"}),
-        "amr_inject": (AMRNumerics("amr_inject", border=BORDER), INJECT_REQUESTS, INJECT_GEN,
-                       {"inject_replay"}),
-    }
 
     def serve(nm, reqs, gen, n_slots):
         eng = ServeEngine(dataclasses.replace(config, numerics=nm), params, n_slots=n_slots,
@@ -417,18 +529,23 @@ def phase_serve(device, card: str, config) -> dict:
         launches[label] = counts
         batched[label] = done[0]
         if len(done) != reqs or any(len(c.tokens) != gen for c in done):
-            raise AssertionError(f"{label}: expected {reqs} completions of {gen} tokens")
+            raise AssertionError(f"{config.name} {label}: expected {reqs} completions of "
+                                 f"{gen} tokens")
         if any(not 0 <= t < config.vocab for c in done for t in c.tokens):
-            raise AssertionError(f"{label}: token out of range")
+            raise AssertionError(f"{config.name} {label}: token out of range")
         if not all(np.isfinite(x).all() and x.shape == (config.vocab,)
                    for c in done for x in c.logits):
-            raise AssertionError(f"{label}: non-finite or misshapen logits")
+            raise AssertionError(f"{config.name} {label}: non-finite or misshapen logits")
         for name, n in counts.items():
             if (name in uses) != (n > 0):
-                raise AssertionError(f"{label}: kernel {name} launched {n} times")
+                raise AssertionError(f"{config.name} {label}: kernel {name} launched {n} times")
+        for name, n in per_prefill.items():
+            if counts[name] != n * reqs:
+                raise AssertionError(f"{config.name} {label}: kernel {name} launched "
+                                     f"{counts[name]} times in {reqs} prefills, not {n} each")
         tokens = sum(len(c.tokens) for c in done)
-        log(f"[serve] {label} on {card}: {len(done)} requests, {tokens} tokens in "
-            f"{wall:.3f}s ({tokens / wall:.2f} tok/s end to end); prefill "
+        log(f"[serve] {config.name} {label} on {card}: {len(done)} requests, {tokens} tokens "
+            f"in {wall:.3f}s ({tokens / wall:.2f} tok/s end to end); prefill "
             f"{eng.prefill_tokens} prompt tokens in {eng.prefill_seconds:.3f}s "
             f"({eng.prefill_tokens / eng.prefill_seconds:.1f} tok/s); decode "
             f"{eng.decode_tokens} tokens in {eng.steps_done} steps, {eng.decode_seconds:.3f}s "
@@ -437,18 +554,46 @@ def phase_serve(device, card: str, config) -> dict:
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}")
 
     # batched vs solo: request 0 alone in a one-slot engine, the same bits
-    for label in ("rank 0", "amr_inject"):
+    for label in solo:
         nm, _, gen, _ = runs[label]
-        _, [solo], _, _ = serve(nm, 1, gen, 1)
-        diff = max(float(np.abs(x - y).max()) for x, y in zip(batched[label].logits, solo.logits))
-        if solo.tokens != batched[label].tokens or diff != 0.0:
-            raise AssertionError(f"{label} request 0: batched {batched[label].tokens} vs solo "
-                                 f"{solo.tokens}, max |logit diff| {diff}")
-        log(f"[batched-vs-solo] {label} request 0: tokens identical {list(solo.tokens)}; "
-            f"max |logit diff| {diff}")
-    for nm, _, gen, _ in runs.values():
+        _, [one], _, _ = serve(nm, 1, gen, 1)
+        diff = max(float(np.abs(x - y).max()) for x, y in zip(batched[label].logits, one.logits))
+        if one.tokens != batched[label].tokens or diff != 0.0:
+            raise AssertionError(f"{config.name} {label} request 0: batched "
+                                 f"{batched[label].tokens} vs solo {one.tokens}, "
+                                 f"max |logit diff| {diff}")
+        log(f"[batched-vs-solo] {config.name} {label} request 0: tokens identical "
+            f"{list(one.tokens)}; max |logit diff| {diff}")
+    for label in profiled:
+        nm, _, gen, _ = runs[label]
         profile_serve(device, card, dataclasses.replace(config, numerics=nm), params, prompts,
                       gen)
+    return launches
+
+
+def phase_serve(device, card: str, gemma, mamba) -> dict:
+    """Full-width gemma-2b at rank 0, rank 8 and under amr_inject, and
+    full-width mamba2-370m at rank 0 and under amr_inject."""
+    from repro_torch.numerics import AMRNumerics
+
+    rank0 = AMRNumerics("amr_kernel", border=BORDER, rank=0)
+    inject = AMRNumerics("amr_inject", border=BORDER)
+    gathers = {"amr_matmul_int8_lut", "amr_matmul_int8_lut_grouped"}
+    gemma_runs = {
+        "rank 0": (rank0, REQUESTS, GEN, gathers),
+        f"rank {RANK}": (AMRNumerics("amr_kernel", border=BORDER, rank=RANK), REQUESTS, GEN,
+                         {"amr_matmul_int8"}),
+        "amr_inject": (inject, INJECT_REQUESTS, INJECT_GEN, {"inject_replay"}),
+    }
+    launches = {"gemma-2b": serve_model(device, card, gemma, gemma_runs, ("rank 0", "amr_inject"),
+                                        tuple(gemma_runs), {})}
+    mamba_runs = {
+        "rank 0": (rank0, REQUESTS, GEN, gathers | {"ssd_scan"}),
+        "amr_inject": (inject, INJECT_REQUESTS, INJECT_GEN, {"inject_replay", "ssd_scan"}),
+    }
+    launches["mamba2-370m"] = serve_model(device, card, mamba, mamba_runs,
+                                          ("rank 0", "amr_inject"), ("rank 0",),
+                                          {"ssd_scan": mamba.n_layers})
     return launches
 
 
@@ -478,12 +623,15 @@ def profile_serve(device, card: str, cfg, params, prompts, gen: int) -> None:
     busy_us = sum(r[0] for r in rows)
     if busy_us <= 0:
         raise AssertionError("the profiler recorded no device time")
-    ours = sum(r[0] for r in rows if "amr_" in r[2] or "inject_replay" in r[2])
-    log(f"[profile] {cfg.numerics} on {card}: {SLOTS} prefills + {eng.steps_done} decode "
-        f"steps, {wall_us / 1e3:.2f} ms wall, device busy {busy_us / 1e3:.2f} ms "
-        f"(idle share {1 - busy_us / wall_us:.3f}), AMR kernels {ours / 1e3:.2f} ms")
-    for dev_us, count, key in rows[:12]:
-        log(f"[profile]   {dev_us / 1e3:9.3f} ms  {count:6d} calls  {key[:100]}")
+    ours = sum(r[0] for r in rows
+               if "amr_" in r[2] or "inject_replay" in r[2] or "ssd_scan" in r[2])
+    log(f"[profile] {cfg.name} {cfg.numerics} on {card}: {SLOTS} prefills + "
+        f"{eng.steps_done} decode steps, {wall_us / 1e3:.2f} ms wall, "
+        f"device busy {busy_us / 1e3:.2f} ms "
+        f"(idle share {1 - busy_us / wall_us:.3f}), hand kernels {ours / 1e3:.2f} ms")
+    for i, (dev_us, count, key) in enumerate(rows):
+        if i < 12 or "ssd_scan" in key:
+            log(f"[profile]   {dev_us / 1e3:9.3f} ms  {count:6d} calls  {key[:100]}")
 
 
 def main() -> int:
@@ -506,34 +654,44 @@ def main() -> int:
     device = torch.device("cuda")
     t_start = time.perf_counter()
 
-    from repro_torch.configs.gemma_2b import CONFIG
+    from repro_torch.configs import gemma_2b, mamba2_370m
 
     phase_build()
     card = card_line()
-    rows = phase_kernels(device, CONFIG)
+    rows = phase_kernels(device, gemma_2b.CONFIG, mamba2_370m.CONFIG)
     phase_reference(device)
-    launches = phase_serve(device, card, CONFIG)
+    launches = phase_serve(device, card, gemma_2b.CONFIG, mamba2_370m.CONFIG)
 
     from repro_torch.kernels.amr_matmul import kernel
     from repro_torch.kernels.inject_replay import kernel as rkernel
+    from repro_torch.kernels.ssd_scan import kernel as skernel
 
     src = "src/repro_torch/kernels/amr_matmul/csrc/"
-    picks = {  # the decode shape each kernel spends most time on at border 8
+    # the gemma-2b decode shape each AMR kernel spends most time on at border
+    # 8, and the SSD kernel at the mamba2-370m prefill shape in split mode
+    # (the served path under rank 0); launches from that model's run
+    picks = {
         "amr_matmul_int8_lut": (rows["lut"][0], src + "lut_matmul.cu",
-                                "src/repro/kernels/amr_matmul/kernel.py:137", "rank 0"),
+                                "src/repro/kernels/amr_matmul/kernel.py:137",
+                                ("gemma-2b", "rank 0")),
         "amr_matmul_int8_lut_grouped": (rows["grouped"][0], src + "lut_matmul.cu",
-                                        "src/repro/kernels/amr_matmul/kernel.py:175", "rank 0"),
+                                        "src/repro/kernels/amr_matmul/kernel.py:175",
+                                        ("gemma-2b", "rank 0")),
         "amr_matmul_int8": (rows["lowrank"][0], src + "lowrank_matmul.cu",
-                            "src/repro/kernels/amr_matmul/kernel.py:47", f"rank {RANK}"),
+                            "src/repro/kernels/amr_matmul/kernel.py:47",
+                            ("gemma-2b", f"rank {RANK}")),
         "inject_replay": (rows["replay"][0],
                           "src/repro_torch/kernels/inject_replay/csrc/inject_replay.cu",
-                          "src/repro/kernels/inject_replay/kernel.py:81", "amr_inject"),
+                          "src/repro/kernels/inject_replay/kernel.py:81",
+                          ("gemma-2b", "amr_inject")),
+        "ssd_scan": (rows["ssd"][1], "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan/kernel.py:25", ("mamba2-370m", "rank 0")),
     }
     out = []
-    for k in kernel.KERNELS + rkernel.KERNELS:
-        row, source, replaces, label = picks[k.name]
+    for k in kernel.KERNELS + rkernel.KERNELS + skernel.KERNELS:
+        row, source, replaces, (model, label) = picks[k.name]
         out.append({"name": k.name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": launches[label][k.name], "max_abs_err": row["max_abs_err"],
+                    "launches": launches[model][label][k.name], "max_abs_err": row["max_abs_err"],
                     "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                     "shape": row["shape"]})

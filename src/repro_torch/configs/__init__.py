@@ -1,5 +1,5 @@
-"""Model configurations of the port (the dense family so far)."""
-from .base import LayerPattern, ModelConfig
+"""Model configurations of the port (the dense and SSM families so far)."""
+from .base import LayerPattern, ModelConfig, SSMConfig
 from .registry import get_config, get_reduced_config
 
-__all__ = ["ModelConfig", "LayerPattern", "get_config", "get_reduced_config"]
+__all__ = ["ModelConfig", "LayerPattern", "SSMConfig", "get_config", "get_reduced_config"]

@@ -1,6 +1,7 @@
 """Model architecture descriptor, mirroring the JAX package's ``configs/base.py``.
 
-Only the fields the ported (dense decoder) path reads are kept; they carry
+Only the fields the ported paths (the dense decoder and the Mamba2 SSM
+family) read are kept; they carry
 the JAX package's names and defaults so that a parity test can compare
 the two configs field by field.  ``numerics`` holds one ``AMRNumerics``
 design point for every matmul of the model.
@@ -11,6 +12,16 @@ import dataclasses
 from typing import Literal
 
 from repro_torch.numerics import AMRNumerics
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int
+    head_dim: int = 64
+    n_groups: int = 1
+    conv_width: int = 4
+    expand: int = 2           # d_inner = expand * d_model
+    chunk: int = 256          # SSD chunk length
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +53,7 @@ class ModelConfig:
     rope_theta: float = 10000.0
     sliding_window: int = 0              # >0: width for 'swa' layers
     pattern: LayerPattern | None = None  # None -> homogeneous default_mixer
+    ssm: SSMConfig | None = None
     mlp_act: Literal["swiglu", "geglu", "gelu"] = "swiglu"
     tie_embeddings: bool = True
     norm_eps: float = 1e-6

@@ -4,6 +4,8 @@
       --requests 8 --slots 4 --prompt-len 16 --gen 8 \
       --numerics amr_kernel --border 8 --rank 0
   PYTHONPATH=src python -m repro_torch.launch.serve --full --numerics amr_inject
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m --full \
+      --numerics amr_kernel --rank 0
 
 Thin CLI over ``repro_torch.serve.ServeEngine`` with random weights from
 ``--seed``.  ``--numerics`` overrides the config's matmul policy

@@ -1,5 +1,5 @@
-"""Dense decoder of the port: layers, attention with a per-slot KV cache,
-and the model entry points."""
+"""Models of the port: layers, attention with a per-slot KV cache, the
+Mamba2 SSM mixer, and the model entry points."""
 from .model import decode_step, forward, group_structure, init_cache, init_params, \
     prefill_with_cache
 

@@ -1,16 +1,19 @@
-"""LM assembly for the dense decoder: init, forward, prefill and decode.
+"""LM assembly for the dense and SSM families: init, forward, prefill and decode.
 
-The port of the dense part of the JAX package's ``models/model.py``.  The
-parameter tree keeps the JAX layout, so that both packages can compute on
-the same weights (``convert.params_from_numpy``):
+The port of the dense and Mamba2 parts of the JAX package's
+``models/model.py``.  The parameter tree keeps the JAX layout, so that both
+packages can compute on the same weights (``convert.params_from_numpy``):
 
   {"embed": (V, D), "final_norm": (D,),
-   "layers": ({"ln1", "ln2", "attn": {...}, "mlp": {...}},)}
+   "layers": ({"ln1", "ln2", "attn": {...}, "mlp": {...}},)}   # "full" layers
+   "layers": ({"ln1", "ln2", "ssm": {...}},)                    # "ssm" layers
 
 ``layers`` holds one dict per layer kind of a group, its leaves stacked
 over the group's ``n_repeat`` copies.  Where the JAX package scans over the
 stacked copies, this module loops in Python.  Decode caches mirror the same
-grouping: one ``KVCache`` per kind, leaves stacked over ``n_repeat``.
+grouping: one ``KVCache`` (attention) or ``SSMState`` (conv rings and
+state, no position) per kind, leaves stacked over ``n_repeat``.  A Mamba2
+block has no MLP: its ``ln2`` is kept, unused, as in the JAX package.
 
 Every matmul of every layer runs under ``cfg.numerics``; the LM head stays
 exact.
@@ -23,10 +26,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 
 from . import attention as attn
+from . import ssm as ssm_lib
 from .layers import embed, mlp, rms_norm, unembed
 from .tree import tree_map
 
-_ATTENTION_KINDS = ("full",)
+_KINDS = ("full", "ssm")
 
 
 def group_structure(cfg: ModelConfig) -> tuple[tuple[str, ...], int]:
@@ -35,11 +39,11 @@ def group_structure(cfg: ModelConfig) -> tuple[tuple[str, ...], int]:
         kinds, n_repeat = cfg.pattern.kinds, cfg.pattern.n_repeat
     else:
         kinds, n_repeat = (cfg.default_mixer,), cfg.n_layers
-    unported = [k for k in kinds if k not in _ATTENTION_KINDS]
+    unported = [k for k in kinds if k not in _KINDS]
     if unported:
         raise NotImplementedError(
             f"layer kinds {unported} of {cfg.name} are not ported yet; the port runs "
-            f"{_ATTENTION_KINDS} layers")
+            f"{_KINDS} layers")
     return kinds, n_repeat
 
 
@@ -48,7 +52,8 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    """The parameter tree as (shape, dtype, init std or None for zeros) leaves."""
+    """The parameter tree as (shape, dtype, init) leaves: ``init`` is a
+    normal std, None for zeros, or a function of (shape, device)."""
     kinds, n_repeat = group_structure(cfg)
     D, F_ = cfg.d_model, cfg.d_ff
     HD, KD = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
@@ -57,7 +62,10 @@ def param_specs(cfg: ModelConfig) -> dict:
     def stacked(*shape):
         return (n_repeat, *shape)
 
-    def layer() -> dict:
+    def layer(kind: str) -> dict:
+        norms = {"ln1": (stacked(D), f32, None), "ln2": (stacked(D), f32, None)}
+        if kind == "ssm":
+            return {**norms, "ssm": ssm_lib.ssm_param_specs(D, cfg.ssm, dt, stacked)}
         a = {
             "wq": (stacked(D, HD), dt, D ** -0.5),
             "wk": (stacked(D, KD), dt, D ** -0.5),
@@ -68,8 +76,7 @@ def param_specs(cfg: ModelConfig) -> dict:
             a["q_norm"] = (stacked(cfg.head_dim), f32, None)
             a["k_norm"] = (stacked(cfg.head_dim), f32, None)
         return {
-            "ln1": (stacked(D), f32, None),
-            "ln2": (stacked(D), f32, None),
+            **norms,
             "attn": a,
             "mlp": {
                 "w_gate": (stacked(D, F_), dt, D ** -0.5),
@@ -81,7 +88,7 @@ def param_specs(cfg: ModelConfig) -> dict:
     specs = {
         "embed": ((cfg.vocab, D), dt, D ** -0.5),
         "final_norm": ((D,), f32, None),
-        "layers": tuple(layer() for _ in kinds),
+        "layers": tuple(layer(k) for k in kinds),
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ((cfg.vocab, D), dt, D ** -0.5)
@@ -104,7 +111,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device: str | torch.device =
     """Random weights from a seeded ``torch.Generator`` on ``device``.
 
     Normal(0, std) per weight, drawn in float32 and cast to ``cfg.dtype``;
-    norm scales start at zero.  The numbers differ from the JAX package's
+    norm scales start at zero; the SSM's ``a_log`` and ``d_skip`` take the
+    JAX package's fixed values.  The numbers differ from the JAX package's
     (another generator); ``convert.params_from_numpy`` carries the JAX
     package's weights over where both must compute on the same ones.
     """
@@ -114,6 +122,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device: str | torch.device =
     def draw(shape, dtype, std):
         if std is None:
             return torch.zeros(shape, dtype=dtype, device=dev)
+        if callable(std):
+            return std(shape, dev).to(dtype)
         w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
         return w.mul_(std).to(dtype)
 
@@ -141,9 +151,13 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     kinds, n_repeat = group_structure(cfg)
     x = embed(params["embed"], tokens)
     for g in range(n_repeat):
-        for i, _kind in enumerate(kinds):
+        for i, kind in enumerate(kinds):
             lp = _layer(params["layers"][i], g)
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            if kind == "ssm":
+                x = x + ssm_lib.ssm_forward(lp["ssm"], h, cfg.d_model, cfg.ssm, cfg.numerics,
+                                            cfg.norm_eps)
+                continue
             x = x + attn.attend_full(lp["attn"], h, **_attn_kwargs(cfg))
             h = rms_norm(x, lp["ln2"], cfg.norm_eps)
             x = x + mlp(lp["mlp"], h, cfg.mlp_act, cfg.numerics)
@@ -155,16 +169,21 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device: torch.device,
                per_slot: bool = False) -> tuple:
-    """One ``KVCache`` per layer kind, leaves stacked over n_repeat.
+    """One ``KVCache`` (or ``SSMState`` for an SSM layer) per layer kind,
+    leaves stacked over n_repeat.
 
     ``per_slot=True`` gives each batch row its own position (``length`` of
-    shape (n_repeat, B)): the continuous-batching slot cache.
+    shape (n_repeat, B)): the continuous-batching slot cache.  An SSM state
+    has no position; its rows are per slot already.
     """
     kinds, n_repeat = group_structure(cfg)
 
-    def one(_kind):
-        c = attn.KVCache.zeros(batch, capacity, cfg.n_kv_heads, cfg.head_dim, _dtype(cfg),
-                               device, per_slot=per_slot)
+    def one(kind):
+        if kind == "ssm":
+            c = ssm_lib.SSMState.zeros(batch, cfg.d_model, cfg.ssm, _dtype(cfg), device)
+        else:
+            c = attn.KVCache.zeros(batch, capacity, cfg.n_kv_heads, cfg.head_dim,
+                                   _dtype(cfg), device, per_slot=per_slot)
         return tree_map(lambda t: t.expand(n_repeat, *t.shape).clone(), c)
 
     return tuple(one(k) for k in kinds)
@@ -200,9 +219,15 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor, cache: tupl
     per_group = []
     for g in range(n_repeat):
         new = []
-        for i, _kind in enumerate(kinds):
+        for i, kind in enumerate(kinds):
             lp = _layer(params["layers"][i], g)
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            if kind == "ssm":
+                y, c = ssm_lib.ssm_decode(lp["ssm"], h, _layer(cache[i], g), cfg.d_model,
+                                          cfg.ssm, cfg.numerics, cfg.norm_eps)
+                x = x + y
+                new.append(c)
+                continue
             y, c = attn.attend_decode(lp["attn"], h, _layer(cache[i], g), **_attn_kwargs(cfg))
             x = x + y
             h = rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -224,9 +249,15 @@ def prefill_with_cache(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     per_group = []
     for g in range(n_repeat):
         caches = []
-        for i, _kind in enumerate(kinds):
+        for i, kind in enumerate(kinds):
             lp = _layer(params["layers"][i], g)
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            if kind == "ssm":
+                y, c = ssm_lib.ssm_prefill(lp["ssm"], h, cfg.d_model, cfg.ssm, cfg.numerics,
+                                           cfg.norm_eps)
+                x = x + y
+                caches.append(c)
+                continue
             y, c = attn.attend_prefill(lp["attn"], h, capacity, **_attn_kwargs(cfg))
             x = x + y
             h = rms_norm(x, lp["ln2"], cfg.norm_eps)

@@ -1,11 +1,10 @@
 """``tree_map`` over the port's parameter and cache trees (dicts, tuples,
-``KVCache``s, tensors at the leaves)."""
+cache dataclasses such as ``KVCache`` and ``SSMState``, tensors at the
+leaves)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
-
-from .attention import KVCache
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -14,7 +13,7 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return tuple(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
-    if isinstance(tree, KVCache):
-        return KVCache(*(tree_map(fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
-                         for f in dataclasses.fields(KVCache)))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(*(tree_map(fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
+                            for f in dataclasses.fields(tree)))
     return fn(tree, *rest)

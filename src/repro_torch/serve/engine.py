@@ -35,8 +35,9 @@ from .slots import SlotAllocator
 
 def _insert_request(engine_cache: tuple, request_cache: tuple, slot: int) -> None:
     """Write a batch-1 prefill cache into slot row ``slot`` of the engine
-    cache, in place.  Leaves are stacked (n_repeat, B, ...); scalar-position
-    length leaves arrive as (n_repeat,) and fill the slot's column."""
+    cache, in place.  Leaves are stacked (n_repeat, B, ...): K/V, or an SSM
+    layer's conv rings and state; scalar-position length leaves arrive as
+    (n_repeat,) and fill the slot's column."""
 
     def one(e, r):
         e[:, slot] = r[:, 0] if r.dim() == e.dim() else r

@@ -9,20 +9,29 @@ import).  Run on a GPU machine with
 Tolerances: the integer gather kernels and the circuit-replay kernel are
 compared bit for bit (also at border 14, whose products exceed int16); the
 low-rank kernel sums the same float32 terms as its plain version in another
-order: |kernel - plain| <= 1e-5 * max_mn sum_k (|a b| + sum_r |u v|).
+order: |kernel - plain| <= 1e-5 * max_mn sum_k (|a b| + sum_r |u v|); the
+SSD scan kernel likewise, within ``ssd_scan.ref.ssd_error_bound`` of its
+plain version per output (the sums' roundings and those of the cumulative
+log decay, relative to the same function of the absolute values, per
+batch, chunk and head); copies of the SSD source with a planted fault must
+fail that check on inputs whose carried state shows.
 """
 import dataclasses
 
 import pytest
 import torch
 
+from repro_torch.configs import mamba2_370m
 from repro_torch.configs.gemma_2b import reduced
 from repro_torch.core import lut
 from repro_torch.core import engine, reduction
 from repro_torch.kernels.amr_matmul import kernel, ops, ref
-from repro_torch.kernels.build import build_all
+from repro_torch.kernels import build
+from repro_torch.kernels.build import CudaKernel, CudaLibrary, build_all
 from repro_torch.kernels.inject_replay import kernel as rkernel
 from repro_torch.kernels.inject_replay import ref as rref
+from repro_torch.kernels.ssd_scan import kernel as skernel
+from repro_torch.kernels.ssd_scan import ref as sref
 from repro_torch.models import init_params
 from repro_torch.models.tree import tree_map
 from repro_torch.numerics import AMRNumerics
@@ -46,7 +55,8 @@ def _int8(shape, seed, device):
 
 
 def test_kernels_build(cuda, capsys):
-    records = build_all(list(kernel.LIBRARIES) + list(rkernel.LIBRARIES))
+    records = build_all(list(kernel.LIBRARIES) + list(rkernel.LIBRARIES)
+                        + list(skernel.LIBRARIES))
     with capsys.disabled():
         for name, rec in records.items():
             print(f"\n[build] {name}: {rec.seconds:.1f}s\n{rec.log}")
@@ -180,8 +190,140 @@ def test_reduced_model_serves_through_replay_kernel(cuda):
     assert rkernel.REPLAY.launches > before
 
 
-def _serve_card_and_cpu(numerics):
-    cfg = dataclasses.replace(reduced(), dtype="float32", numerics=numerics)
+def _ssd_inputs(B, S, H, P, N, G, dtype, device, seed=0, carry_chunk=None):
+    """dt as the model makes it (softplus of a projection), or, with
+    ``carry_chunk``, scaled per head so that a chunk of that length decays
+    the state by exp(-0.5) on average and the carried state shows."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, device=device))
+    if carry_chunk:
+        dt = torch.rand((B, S, H), generator=g, device=device) / (torch.exp(a_log) * carry_chunk)
+    else:
+        dt = torch.nn.functional.softplus(normal(B, S, H))
+    return (normal(B, S, H, P).to(dtype), dt, a_log, normal(B, S, G, N).to(dtype),
+            normal(B, S, G, N).to(dtype))
+
+
+def _ssd_err_over_bound(args, chunk, split):
+    got = skernel.ssd_scan(*args, chunk, split=split)
+    want = sref.ssd_ref(*args, chunk, split=split)
+    bounds = sref.ssd_error_bound(*args, chunk, split=split)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+    return max(float(((g - w).abs() / bd).max()) for g, w, bd in zip(got, want, bounds))
+
+
+_SSD_CARRY = (1, 1024, 32, 64, 128, 1, 256, torch.bfloat16)  # 4 chunks at the model's widths
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["full", "split"])
+@pytest.mark.parametrize("B,S,H,P,N,G,chunk,dtype,carry", [
+    (1, 16, 32, 64, 128, 1, 256, torch.bfloat16, False),    # the 16-token prefill, padded tail
+    (1, 1024, 32, 64, 128, 1, 256, torch.bfloat16, False),  # 4 chunks, the model's dt
+    (2, 300, 8, 32, 64, 2, 128, torch.float32, False),      # G < H, ragged last chunk
+    (1, 37, 4, 16, 16, 4, 16, torch.float32, False),        # the reduced config's widths
+    _SSD_CARRY + (True,),                                   # 4 chunks, the state carried
+    (2, 300, 8, 32, 64, 2, 128, torch.float32, True),       # G < H, ragged, carried
+])
+def test_ssd_kernel_within_bound_of_plain(cuda, split, B, S, H, P, N, G, chunk, dtype, carry):
+    args = _ssd_inputs(B, S, H, P, N, G, dtype, cuda, carry_chunk=chunk if carry else None)
+    before = skernel.SSD.launches
+    ratio = _ssd_err_over_bound(args, chunk, split)
+    assert skernel.SSD.launches == before + 1
+    assert ratio <= 1.0, ratio
+    if carry:  # a kernel without the carry would be off by the carried part
+        bounds = sref.ssd_error_bound(*args, chunk, split=split)
+        carried = sref.ssd_carried(*args, chunk, split=split)
+        seen = [float((cr.abs() / bd).max()) for cr, bd in zip(carried, bounds)]
+        assert min(seen[1:] if split else seen) >= 100.0, seen
+
+
+# Faults planted in a copy of the kernel's source: the carried state dropped
+# or mis-scaled, and reduced precision where TF32 or bf16 would round.
+_TF32 = ("__device__ __forceinline__ float tf32(float v) {\n"
+         "  return __uint_as_float((__float_as_uint(v) + 0x1000u) & 0xffffe000u);\n}\n")
+_BF16 = ("__device__ __forceinline__ float bf16(float v) {\n"
+         "  return __bfloat162float(__float2bfloat16(v));\n}\n")
+_DECAY = "acc[j] * expf(sm.cum[tg] - sm.cum[sg])"
+_XDT = "widen(x[((size_t(bi) * S + r0 + t) * H + hd) * P + p0 + p]) * sm.dt[t]"
+SSD_PLANTS = {
+    "drop_carry": ("sm.h[i] = decay_q * sm.h[i] + sm.hacc[i];", "sm.h[i] = sm.hacc[i];"),
+    "half_decay": ("const float decay_q = expf(cum_q);",
+                   "const float decay_q = expf(0.5f * cum_q);"),
+    "tf32_xdt": (_XDT, f"tf32({_XDT})"),
+    "tf32_decay": (_DECAY, "acc[j] * tf32(expf(sm.cum[tg] - sm.cum[sg]))"),
+    "bf16_decay": (_DECAY, "acc[j] * bf16(expf(sm.cum[tg] - sm.cum[sg]))"),
+}
+
+
+@pytest.fixture(scope="module")
+def ssd_plants(tmp_path_factory):
+    """One library per planted fault, all built at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    src = skernel.LIBRARY.source.read_text()
+    root = tmp_path_factory.mktemp("ssd_plants")
+    libs = {}
+    for name, (old, new) in SSD_PLANTS.items():
+        assert src.count(old) == 1, name
+        path = root / f"ssd_scan_{name}.cu"
+        path.write_text(src.replace("namespace {\n", "namespace {\n" + _TF32 + _BF16, 1)
+                        .replace(old, new))
+        libs[name] = CudaLibrary(path)
+    with pytest.MonkeyPatch.context() as mp:  # the planted libraries stay out of the checkout
+        mp.setattr(build, "BUILD_DIR", root)
+        build_all(list(libs.values()))
+        for lib in libs.values():
+            lib.handle()
+    return libs
+
+
+@pytest.mark.parametrize("plant", list(SSD_PLANTS))
+def test_ssd_check_fails_a_planted_fault(cuda, ssd_plants, monkeypatch, capsys, plant):
+    """The check above, on inputs whose carried state shows, rejects each
+    planted fault in both modes.  With the model's dt, float32's own
+    rounding of a cumulative log decay near 3300 is as coarse as TF32's,
+    so only such inputs tell a reduced-precision kernel apart."""
+    B, S, H, P, N, G, chunk, dtype = _SSD_CARRY
+    args = _ssd_inputs(B, S, H, P, N, G, dtype, cuda, carry_chunk=chunk)
+    monkeypatch.setattr(skernel, "SSD", CudaKernel("ssd_scan", ssd_plants[plant], "ssd_scan",
+                                                   skernel.SSD.argtypes))
+    ratios = [_ssd_err_over_bound(args, chunk, split) for split in (False, True)]
+    with capsys.disabled():
+        print(f"\n[plant] {plant}: err/bound full {ratios[0]:.4g} split {ratios[1]:.4g}")
+    assert min(ratios) > 1.0, ratios
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, dt, a_log, b, c = _ssd_inputs(1, 8, 2, 24, 16, 1, torch.float32, cuda)
+    with pytest.raises(ValueError, match="P % 16"):
+        skernel.ssd_scan(x, dt, a_log, b, c, 16)
+    x, dt, a_log, b, c = _ssd_inputs(1, 8, 2, 16, 16, 1, torch.float32, cuda)
+    with pytest.raises(TypeError, match="share"):
+        skernel.ssd_scan(x.half(), dt, a_log, b, c, 16)
+    with pytest.raises(ValueError, match="devices"):
+        skernel.ssd_scan(x, dt.cpu(), a_log, b, c, 16)
+
+
+@pytest.mark.parametrize("numerics", [AMRNumerics("exact"),
+                                      AMRNumerics("amr_kernel", border=8, rank=0)],
+                         ids=["exact", "amr_kernel-r0"])
+def test_reduced_mamba_serves_through_ssd_kernel(cuda, numerics):
+    """Reduced mamba2-370m: the card's SSD kernel (full mode under exact,
+    split mode under amr_kernel) and the CPU's plain version give the same
+    tokens on the same weights."""
+    before = skernel.SSD.launches
+    _serve_card_and_cpu(numerics, mamba2_370m.reduced())
+    assert skernel.SSD.launches > before
+
+
+def _serve_card_and_cpu(numerics, base=None):
+    cfg = dataclasses.replace(base or reduced(), dtype="float32", numerics=numerics)
     params = init_params(cfg, 0, device="cpu")
     outs = {}
     for dev in ("cpu", "cuda"):

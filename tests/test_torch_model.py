@@ -17,6 +17,7 @@ Tolerances:
   quantizer's bf16 scale in float32, which the port does not copy.
 """
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -25,7 +26,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from repro.configs.gemma_2b import CONFIG as JCONFIG
 from repro.configs.gemma_2b import reduced as jreduced
 from repro.models import decode_step as jdecode
 from repro.models import forward as jforward
@@ -33,7 +33,6 @@ from repro.models import init_params as jinit
 from repro.models import prefill_with_cache as jprefill
 from repro.numerics import AMRNumerics as JN
 from repro.train.steps import make_prefill_step as jprefill_step
-from repro_torch.configs.gemma_2b import CONFIG as TCONFIG
 from repro_torch.configs.gemma_2b import reduced as treduced
 from repro_torch.models import decode_step as tdecode
 from repro_torch.models import forward as tforward
@@ -78,11 +77,19 @@ def _check(got, ref, dtype, exact):
         assert corr >= 0.98 and diff.mean() <= 0.15 * np.abs(ref).mean(), (corr, diff.mean())
 
 
-def test_config_fields_match_jax():
-    for f in dataclasses.fields(TCONFIG):
+def _field(cfg, name):
+    v = getattr(cfg, name)
+    return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
+
+
+@pytest.mark.parametrize("arch", ["gemma_2b", "mamba2_370m"])
+def test_config_fields_match_jax(arch):
+    jmod = importlib.import_module(f"repro.configs.{arch}")
+    tmod = importlib.import_module(f"repro_torch.configs.{arch}")
+    for f in dataclasses.fields(tmod.CONFIG):
         if f.name != "numerics":
-            assert getattr(TCONFIG, f.name) == getattr(JCONFIG, f.name), f.name
-            assert getattr(treduced(), f.name) == getattr(jreduced(), f.name), f.name
+            assert _field(tmod.CONFIG, f.name) == _field(jmod.CONFIG, f.name), f.name
+            assert _field(tmod.reduced(), f.name) == _field(jmod.reduced(), f.name), f.name
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -5,8 +5,8 @@
 
 Phases (any failure raises, and the run exits non-zero):
 
-1. build — compile every CUDA kernel of the served paths from ``src/``
-   with nvcc for sm_90a (one nvcc per source, in parallel); print the build
+1. build — compile every CUDA kernel of the port from ``src/`` with nvcc
+   for sm_90a (one nvcc per source, in parallel); print the build
    seconds and the card's name, power limit and maximum SM clock;
 2. kernels — each kernel against its plain PyTorch version on the card at
    the served paths' shapes: the integer gather kernels bit for bit at
@@ -30,7 +30,24 @@ Phases (any failure raises, and the run exits non-zero):
    and amr_inject, and reduced mamba2-370m under exact (SSD kernel in full
    mode) and amr_kernel rank 0 (split mode): tokens equal, logits within
    1e-3 * max|logit|;
-4. serve — full-width gemma-2b (18 layers, d_model 2048, vocab 256000,
+4. attn_fused — the fused AMR attention op (``kernels/attn_fused``), which
+   no served step dispatches (the models run the unfused seam, as the JAX
+   package's do), at gemma-2b's attention width (8 heads, 1 KV head,
+   head_dim 256, folded as the seam folds them: G = batch, M = 8 S, D = P =
+   256): the served decode (2 slots, capacity 24, ragged lengths) and
+   prefill (16 tokens, causal) on the full-width model's own layer-0 q, k,
+   v, a causal long prefill (S = 1024 for lut, 256 for inject) and a decode
+   over gemma-2b's 8192-token context on seeded operands; at border 8 and
+   14 (int16 and int32 tables), inject also on a registered border-6
+   schedule (a DSE candidate).  Each kernel equals its plain version bit
+   for bit at three row tiles, and the op is within
+   ``attn_fused.ref.flip_tolerance`` of the unfused seam composition
+   (``fused_attention_reference``, torch.softmax); per case the kernel's,
+   the op's, the plain version's and the unfused seam's ms, the bound, the
+   max difference to the seam and the share of flipped probability
+   indices.  The op at the long-decode case, border 8, is the path whose
+   launches the kernels line reports: one per op call;
+5. serve — full-width gemma-2b (18 layers, d_model 2048, vocab 256000,
    random weights from seed 0) through ``ServeEngine``: under
    ``AMRNumerics("amr_kernel", border=8)`` at rank 0 and at rank 8 (4
    requests, 2 slots, prompt 16, 8 new tokens) and under
@@ -43,11 +60,12 @@ Phases (any failure raises, and the run exits non-zero):
    the low-rank kernel only, amr_inject the replay kernel only; for
    mamba2-370m rank 0 both gather kernels and the SSD kernel, amr_inject
    the replay kernel and the SSD kernel, the SSD kernel 48 times per
-   prefill (once per layer) and never in decode;
-5. batched vs solo — request 0 served alone (1 slot) at rank 0 and under
+   prefill (once per layer) and never in decode, the fused attention
+   kernels never;
+6. batched vs solo — request 0 served alone (1 slot) at rank 0 and under
    amr_inject gives the same tokens and the same logits, bit for bit, as
    in the batched run, for both models;
-6. profile — one more run of 2 requests at rank 0, at rank 8 and under
+7. profile — one more run of 2 requests at rank 0, at rank 8 and under
    amr_inject for gemma-2b, and at rank 0 for mamba2-370m, under
    ``torch.profiler``: device time by kernel and the device's idle share.
 
@@ -59,7 +77,13 @@ SMs x the maximum SM clock that nvidia-smi reports.  The SSD kernel's
 operations are counted over the rows the input holds (a 16-token prompt is
 16 rows, not the 256 of its padded chunk): the lower triangle of C B^T and
 of its product with x dt, the readout C h in full mode for every chunk
-after the first (h is 0 before it), and the state update.
+after the first (h is 0 before it), and the state update.  The fused
+attention kernels count their operands as they take them (int8 q, k, v,
+float32 scales, the int32 mask, the table for lut) and the float32 output;
+the lut kernel 2 operations (a gather, an add) per product of QK^T and of
+PV, the inject kernel ``replay_ops`` for both products; QK^T only where
+the mask keeps the score (per 32-column word for inject), PV over every
+column, since AMR(0, v) is not 0.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers, and ``{"ok": true, "device": {...}}``.
@@ -156,13 +180,14 @@ def copies(nbytes: int) -> int:
 # ------------------------------------------------------------------ phases
 def phase_build() -> None:
     from repro_torch.kernels.amr_matmul import kernel
+    from repro_torch.kernels.attn_fused import kernel as akernel
     from repro_torch.kernels.build import build_all
     from repro_torch.kernels.inject_replay import kernel as rkernel
     from repro_torch.kernels.ssd_scan import kernel as skernel
 
     t0 = time.perf_counter()
     records = build_all(list(kernel.LIBRARIES) + list(rkernel.LIBRARIES)
-                        + list(skernel.LIBRARIES))
+                        + list(skernel.LIBRARIES) + list(akernel.LIBRARIES))
     log(f"[build] {len(records)} CUDA sources in {time.perf_counter() - t0:.1f}s wall "
         + ", ".join(f"{k} {v.seconds:.1f}s" for k, v in records.items()))
     for name, rec in records.items():
@@ -480,32 +505,257 @@ def phase_reference(device) -> None:
             f"launches {skernel.SSD.launches}")
 
 
-def serve_model(device, card: str, config, runs: dict, solo: tuple, profiled: tuple,
-                per_prefill: dict) -> dict:
-    """Serve full-width ``config`` through ServeEngine under each numerics of
-    ``runs`` (label: (numerics, requests, new tokens, the kernels it must
-    launch)); the labels in ``solo`` again with request 0 alone, and those
-    in ``profiled`` once more under the profiler.  ``per_prefill`` names
-    kernels that must launch exactly that many times per prefill.  Returns
-    each run's launch counts."""
+ATTN_LONG_PREFILL = {"lut": 1024, "inject": 256}  # S of the causal long prefills
+ATTN_CONTEXT = 8192                               # gemma-2b's context: the long decode's T
+ATTN_DECODE_LENGTHS = (17, CAPACITY)              # the served decode's ragged slot lengths
+
+
+def _fold(q, k, v):
+    """(B, S, 8, 256) queries, (B, T, 1, 256) keys and values -> the seam's
+    (B, 8 S, 256), (B, 256, T), (B, T, 256), in float32."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    qa = q.reshape(B, S, Hkv, g, D).permute(0, 2, 3, 1, 4).reshape(B * Hkv, g * S, D)
+    return (qa.float().contiguous(), k.permute(0, 2, 3, 1).reshape(B * Hkv, D, T).float(),
+            v.permute(0, 2, 1, 3).reshape(B * Hkv, T, D).float().contiguous())
+
+
+def _causal(G, g, S, device):
     import torch
 
-    from repro_torch.kernels.amr_matmul import kernel
-    from repro_torch.kernels.inject_replay import kernel as rkernel
-    from repro_torch.kernels.ssd_scan import kernel as skernel
+    return torch.tril(torch.ones(S, S, dtype=torch.int32, device=device)).repeat(g, 1).expand(
+        G, g * S, S).contiguous()
+
+
+def attn_cases(device, cfg, params) -> dict:
+    """label -> (q, kt, v, mask, methods): the served decode and prefill on
+    the full-width model's layer-0 q, k, v (its attention projections under
+    amr_kernel rank 0, bf16, cast to float32), the long cases on seeded
+    normal operands at the same widths."""
+    import torch
+
+    from repro_torch.models.attention import _project_qkv
+    from repro_torch.models.layers import embed, rms_norm
+    from repro_torch.numerics import AMRNumerics
+
+    g = cfg.n_heads // cfg.n_kv_heads
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (SLOTS, CAPACITY)))
+    layer = {k: t[0] for k, t in params["layers"][0]["attn"].items()}
+    h = rms_norm(embed(params["embed"], tokens.to(device)), params["layers"][0]["ln1"][0],
+                 cfg.norm_eps)
+    positions = torch.arange(CAPACITY, device=device).expand(SLOTS, CAPACITY)
+    q, k, v = _project_qkv(layer, h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, positions,
+                           cfg.rope_theta, cfg.qk_norm,
+                           AMRNumerics("amr_kernel", border=BORDER, rank=0), cfg.norm_eps)
+    lengths = torch.tensor(ATTN_DECODE_LENGTHS, device=device)
+    q_dec = torch.stack([q[b, n - 1] for b, n in enumerate(ATTN_DECODE_LENGTHS)])[:, None]
+    dec_mask = (torch.arange(CAPACITY, device=device) < lengths[:, None, None]).int()
+    cases = {
+        "served decode": (*_fold(q_dec, k, v), dec_mask.expand(SLOTS, g, CAPACITY).contiguous(),
+                          ("lut", "inject")),
+        "served prefill": (*_fold(q[:1, :PROMPT_LEN], k[:1, :PROMPT_LEN], v[:1, :PROMPT_LEN]),
+                           _causal(1, g, PROMPT_LEN, device), ("lut", "inject")),
+    }
+    gen = torch.Generator(device=device).manual_seed(4)
+    D = cfg.head_dim
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    for method, S in ATTN_LONG_PREFILL.items():
+        cases[f"long prefill {method}"] = (normal(1, g * S, D), normal(1, D, S), normal(1, S, D),
+                                           _causal(1, g, S, device), (method,))
+    lens = torch.tensor([ATTN_CONTEXT - 1000, ATTN_CONTEXT], device=device)
+    cases["long decode"] = (normal(SLOTS, g, D), normal(SLOTS, D, ATTN_CONTEXT),
+                            normal(SLOTS, ATTN_CONTEXT, D),
+                            (torch.arange(ATTN_CONTEXT, device=device) < lens[:, None, None])
+                            .int().expand(SLOTS, g, ATTN_CONTEXT).contiguous(), ("lut", "inject"))
+    return cases
+
+
+def _row_tiles(M: int, default: int) -> list[int]:
+    """The default row tile and the first two other divisors of M of 1, 2, 4, 8, 16, 32."""
+    return [default] + [b for b in (1, 2, 4, 8, 16, 32) if M % b == 0 and b != default][:2]
+
+
+def phase_attn_fused(device, cases: dict, int_rate: float) -> tuple[list, dict]:
+    """Both fused attention kernels at every case: bit for bit against their
+    plain versions at three row tiles, one launch of its kernel per op call,
+    within the flip tolerance of the unfused seam composition; times and
+    bounds.  Returns the rows and the launch counts of the op's call at the
+    long-decode case, border 8."""
+    import torch
+
+    from repro_torch.core import lut, reduction
+    from repro_torch.kernels.amr_matmul import ops as mops
+    from repro_torch.kernels.amr_matmul.ref import lut_matmul_ref
+    from repro_torch.kernels.attn_fused import kernel as akernel
+    from repro_torch.kernels.attn_fused import ops as aops
+    from repro_torch.kernels.attn_fused import ref as aref
+    from repro_torch.numerics import AMRNumerics, injection
+    from repro_torch.numerics.quant import quantize_int8
+
+    dse = injection.register_schedule(reduction.get_schedule(2, 6), name="chip_smoke:b6")
+    schedules = {"lut": [(8, None), (14, None)], "inject": [(8, None), (14, None), (6, dse)]}
+    rows, counts = [], {}
+    for label, (q, kt, v, mask, methods) in cases.items():
+        G, M, D = q.shape
+        T, P = kt.shape[-1], v.shape[-1]
+        scale = float(D) ** 0.5
+        for method in methods:
+            for border, handle in schedules[method]:
+                kw = dict(border=border, method=method, schedule_ref=handle)
+                q8, k8, v8, sq, sk, sv = aops.quantize_operands(q, kt, v, method)
+                if method == "lut":
+                    table = mops.kernel_table(border, device)
+                    table_bytes = table.numel() * table.element_size()
+                    products = lut.table_tensor(border, device)
+                    inj = None
+
+                    def kern(*a, bm=None):
+                        return akernel.attn_fused_lut(*a, table, scale=scale, bm=bm)
+
+                    def plain(*a):
+                        return aref.attn_fused_lut_ref(*a, products, scale)
+                else:
+                    inj = injection.get_injector(AMRNumerics("amr_inject", border=border,
+                                                             schedule_ref=handle))
+                    table_bytes = 0
+                    products = inj.products(*torch.meshgrid(
+                        torch.arange(256, device=device), torch.arange(256, device=device),
+                        indexing="ij"))
+
+                    def kern(*a, bm=None):
+                        return akernel.attn_fused_inject(inj, *a, scale=scale, bm=bm)
+
+                    def plain(*a):
+                        return aref.attn_fused_inject_ref(inj, *a, scale,
+                                                          max_pairs=PLAIN_REPLAY_PAIRS)
+                args = (q8, k8, v8, sq, sk, sv, mask)
+                want = plain(*args)
+                default = akernel.default_row_tile(G, M, method)
+                for bm in _row_tiles(M, default):
+                    got = kern(*args, bm=bm)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"attn_fused {method} {label} border {border} bm {bm}: kernel "
+                            f"differs from plain by {float((got - want).abs().max())}")
+                for k_ in akernel.KERNELS:
+                    k_.launches = 0
+                out = aops.fused_attention(q, kt, v, mask, **kw)
+                torch.cuda.synchronize()
+                launched = {k_.name: k_.launches for k_ in akernel.KERNELS}
+                if launched != {k_.name: int(k_.name == f"attn_fused_{method}")
+                                for k_ in akernel.KERNELS}:
+                    raise AssertionError(f"attn_fused {method} {label}: one op call launched "
+                                         f"{launched}")
+                if label == "long decode" and border == BORDER and handle is None:
+                    counts[method] = launched
+                seam = aops.fused_attention_reference(q, kt, v, mask, **kw)
+                # the plain chain's probabilities (a schedule's replay gives its table's products)
+                qp, ps = aref.softmax_requant(lut_matmul_ref(q8, k8, products), sq, sk, mask, scale)
+                rqp, rps = quantize_int8(aops.reference_probabilities(q, kt, mask, **kw), axis=-1)
+                torch.cuda.synchronize()
+                if out.shape != (G, M, P) or not bool(torch.isfinite(out).all()) \
+                        or not torch.equal(out, want):
+                    raise AssertionError(f"attn_fused {method} {label} border {border}: the op "
+                                         f"is not its kernel's plain version")
+                flips = (qp.int() - rqp.int()).abs()
+                share = float((flips != 0).float().mean())
+                tol = aref.flip_tolerance(qp, rqp, ps, rps, sv, aref.index_step(products), seam)
+                gap = float((out - seam).abs().max())
+                if int(flips.max()) > 1 or share > 0.01 or not bool(((out - seam).abs() <= tol)
+                                                                     .all()):
+                    raise AssertionError(
+                        f"attn_fused {method} {label} border {border}: beyond the flip "
+                        f"tolerance of the seam (flipped share {share}, max step "
+                        f"{int(flips.max())}, max |diff| {gap})")
+                nbytes = sum(t.numel() * t.element_size() for t in args) + 4 * out.numel() \
+                    + table_bytes
+                # QK^T only where the mask keeps the score (a masked score is
+                # overwritten by NEG_INF); PV over every column (AMR(0, v) != 0)
+                if method == "lut":
+                    ops_ = 2 * (int(torch.count_nonzero(mask)) * D + G * M * T * P)
+                else:
+                    tw, pw = math.ceil(T / 32), G * M * math.ceil(P / 32)
+                    live = int(torch.nn.functional.pad(mask != 0, (0, 32 * tw - T))
+                               .view(G, M, tw, 32).any(-1).sum())
+                    ops_ = replay_ops(inj, live * D, live) + replay_ops(inj, pw * T, pw)
+                b_ms, b_by = bound(nbytes, ops_, int_rate)
+                # operand copies rotated past L2, as the other phases time
+                n_sets = min(copies(nbytes), 16)
+                sets = [args] + [tuple(t.clone() for t in args) for _ in range(n_sets - 1)]
+                fsets = [(q, kt, v, mask)] + [(q.clone(), kt.clone(), v.clone(), mask.clone())
+                                              for _ in range(n_sets - 1)]
+                reps = _reps(kern, args)
+                rows.append(dict(
+                    method=method, case=label, border=border, schedule=handle or "default",
+                    shape=(G, M, D, T, P), bm=default, max_abs_err=float((out - want).abs().max()),
+                    gap_to_seam=gap,
+                    flipped_share=share, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    ms=time_ms(kern, sets, reps),
+                    op_ms=time_ms(lambda *a: aops.fused_attention(*a, **kw), fsets, reps),
+                    plain_ms=time_ms(plain, sets, _reps(plain, args)),
+                    unfused_ms=time_ms(lambda *a: aops.fused_attention_reference(*a, **kw),
+                                       fsets, reps)))
+                del sets, fsets
+                log(f"[attn_fused] " + json.dumps(rows[-1]))
+    return rows, counts
+
+
+def _reps(fn, args, budget_ms: float = 100.0) -> int:
+    """Back-to-back calls that fill about budget_ms, from one timed call."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*args)
+    torch.cuda.synchronize()
+    return int(min(50, max(2, budget_ms / max(1e-3, (time.perf_counter() - t0) * 1e3))))
+
+
+def model_params(device, config) -> dict:
+    """Full-width ``config``'s random weights from seed 0, on the card."""
+    import torch
+
     from repro_torch.models import init_params
     from repro_torch.models.tree import tree_map
-    from repro_torch.serve import Request, ServeEngine
 
-    all_kernels = kernel.KERNELS + rkernel.KERNELS + skernel.KERNELS
     t0 = time.perf_counter()
     params = init_params(config, 0, device=device)
     torch.cuda.synchronize()
     sizes: list[int] = []
     tree_map(lambda t: sizes.append(t.numel()), params)
-    n_params = sum(sizes)
-    log(f"[serve] {config.name}: {n_params / 1e9:.3f} G parameters on {device} in "
+    log(f"[serve] {config.name}: {sum(sizes) / 1e9:.3f} G parameters on {device} in "
         f"{time.perf_counter() - t0:.1f}s")
+    return params
+
+
+def all_kernels() -> tuple:
+    from repro_torch.kernels.amr_matmul import kernel
+    from repro_torch.kernels.attn_fused import kernel as akernel
+    from repro_torch.kernels.inject_replay import kernel as rkernel
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+
+    return kernel.KERNELS + rkernel.KERNELS + skernel.KERNELS + akernel.KERNELS
+
+
+def serve_model(device, card: str, config, params, runs: dict, solo: tuple, profiled: tuple,
+                per_prefill: dict) -> dict:
+    """Serve full-width ``config`` (weights ``params``) through ServeEngine
+    under each numerics of ``runs`` (label: (numerics, requests, new tokens,
+    the kernels it must launch; every other kernel must launch no time));
+    the labels in ``solo`` again with request 0 alone, and those in
+    ``profiled`` once more under the profiler.  ``per_prefill`` names
+    kernels that must launch exactly that many times per prefill.  Returns
+    each run's launch counts."""
+    import torch
+
+    from repro_torch.serve import Request, ServeEngine
+
+    kernels = all_kernels()
     rng = np.random.default_rng(0)
     prompts = [tuple(int(t) for t in rng.integers(0, config.vocab, PROMPT_LEN))
                for _ in range(REQUESTS)]
@@ -515,13 +765,13 @@ def serve_model(device, card: str, config, runs: dict, solo: tuple, profiled: tu
                           capacity=CAPACITY, record_logits=True, device=device)
         for p in prompts[:reqs]:
             eng.submit(Request(prompt=p, max_new_tokens=gen))
-        for k in all_kernels:
+        for k in kernels:
             k.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         done = eng.run()
         wall = time.perf_counter() - t0
-        return eng, done, wall, {k.name: k.launches for k in all_kernels}
+        return eng, done, wall, {k.name: k.launches for k in kernels}
 
     launches, batched = {}, {}
     for label, (nm, reqs, gen, uses) in runs.items():
@@ -571,9 +821,10 @@ def serve_model(device, card: str, config, runs: dict, solo: tuple, profiled: tu
     return launches
 
 
-def phase_serve(device, card: str, gemma, mamba) -> dict:
-    """Full-width gemma-2b at rank 0, rank 8 and under amr_inject, and
-    full-width mamba2-370m at rank 0 and under amr_inject."""
+def phase_serve(device, card: str, gemma, gemma_params, mamba) -> dict:
+    """Full-width gemma-2b (weights ``gemma_params``, emptied afterwards) at
+    rank 0, rank 8 and under amr_inject, and full-width mamba2-370m at rank
+    0 and under amr_inject."""
     from repro_torch.numerics import AMRNumerics
 
     rank0 = AMRNumerics("amr_kernel", border=BORDER, rank=0)
@@ -585,14 +836,15 @@ def phase_serve(device, card: str, gemma, mamba) -> dict:
                          {"amr_matmul_int8"}),
         "amr_inject": (inject, INJECT_REQUESTS, INJECT_GEN, {"inject_replay"}),
     }
-    launches = {"gemma-2b": serve_model(device, card, gemma, gemma_runs, ("rank 0", "amr_inject"),
-                                        tuple(gemma_runs), {})}
+    launches = {"gemma-2b": serve_model(device, card, gemma, gemma_params, gemma_runs,
+                                        ("rank 0", "amr_inject"), tuple(gemma_runs), {})}
+    gemma_params.clear()  # free gemma-2b's weights: mamba2-370m's peak memory is its own
     mamba_runs = {
         "rank 0": (rank0, REQUESTS, GEN, gathers | {"ssd_scan"}),
         "amr_inject": (inject, INJECT_REQUESTS, INJECT_GEN, {"inject_replay", "ssd_scan"}),
     }
-    launches["mamba2-370m"] = serve_model(device, card, mamba, mamba_runs,
-                                          ("rank 0", "amr_inject"), ("rank 0",),
+    launches["mamba2-370m"] = serve_model(device, card, mamba, model_params(device, mamba),
+                                          mamba_runs, ("rank 0", "amr_inject"), ("rank 0",),
                                           {"ssd_scan": mamba.n_layers})
     return launches
 
@@ -660,11 +912,12 @@ def main() -> int:
     card = card_line()
     rows = phase_kernels(device, gemma_2b.CONFIG, mamba2_370m.CONFIG)
     phase_reference(device)
-    launches = phase_serve(device, card, gemma_2b.CONFIG, mamba2_370m.CONFIG)
-
-    from repro_torch.kernels.amr_matmul import kernel
-    from repro_torch.kernels.inject_replay import kernel as rkernel
-    from repro_torch.kernels.ssd_scan import kernel as skernel
+    gemma_params = model_params(device, gemma_2b.CONFIG)
+    t0 = time.perf_counter()
+    rows["attn_fused"], attn_launches = phase_attn_fused(
+        device, attn_cases(device, gemma_2b.CONFIG, gemma_params), int_ops_per_s(device))
+    log(f"[attn_fused] phase {time.perf_counter() - t0:.1f}s")
+    launches = phase_serve(device, card, gemma_2b.CONFIG, gemma_params, mamba2_370m.CONFIG)
 
     src = "src/repro_torch/kernels/amr_matmul/csrc/"
     # the gemma-2b decode shape each AMR kernel spends most time on at border
@@ -687,14 +940,31 @@ def main() -> int:
         "ssd_scan": (rows["ssd"][1], "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:25", ("mamba2-370m", "rank 0")),
     }
+    # the fused attention kernels: the op at the long-decode case, border 8;
+    # launches from that op call, and their launches in every served run of
+    # phase 5 (0: no model dispatches the op)
+    served = {name: sum(c[name] for runs in launches.values() for c in runs.values())
+              for name in ("attn_fused_lut", "attn_fused_inject")}
+    launches["attn_fused"] = attn_launches
+    asrc = "src/repro_torch/kernels/attn_fused/csrc/"
+    for name, method, line in (("attn_fused_lut", "lut", 76), ("attn_fused_inject", "inject", 123)):
+        row = next(r for r in rows["attn_fused"] if r["case"] == "long decode"
+                   and r["method"] == method and r["border"] == BORDER
+                   and r["schedule"] == "default")
+        picks[name] = (row, asrc + name + ".cu", f"src/repro/kernels/attn_fused/kernel.py:{line}",
+                       ("attn_fused", method))
     out = []
-    for k in kernel.KERNELS + rkernel.KERNELS + skernel.KERNELS:
+    for k in all_kernels():
         row, source, replaces, (model, label) = picks[k.name]
-        out.append({"name": k.name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": launches[model][label][k.name], "max_abs_err": row["max_abs_err"],
-                    "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                    "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                    "shape": row["shape"]})
+        entry = {"name": k.name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches[model][label][k.name], "max_abs_err": row["max_abs_err"],
+                 "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                 "shape": row["shape"]}
+        if model == "attn_fused":
+            entry.update(unfused_ms=row["unfused_ms"], op_ms=row["op_ms"],
+                         launches_in_served_runs=served[k.name])
+        out.append(entry)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)

@@ -52,16 +52,22 @@ class BuildRecord:
 
 
 class CudaLibrary:
-    """One CUDA source, built into a shared library at first use."""
+    """One CUDA source and the headers it includes, built into a shared
+    library at first use."""
 
-    def __init__(self, source: Path):
+    def __init__(self, source: Path, headers: tuple[Path, ...] = ()):
         self.source = source
+        self.headers = tuple(headers)
         self._handle: ctypes.CDLL | None = None
 
     @property
+    def include_flags(self) -> list[str]:
+        return [f"-I{d}" for d in dict.fromkeys(str(h.parent) for h in self.headers)]
+
+    @property
     def path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        text = b"".join(f.read_bytes() for f in (self.source, *self.headers))
+        digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         return BUILD_DIR / f"{self.source.stem}-{digest}.so"
 
     def handle(self) -> ctypes.CDLL:
@@ -92,7 +98,7 @@ def build_all(libraries: list[CudaLibrary]) -> dict[str, BuildRecord]:
     procs = []
     for lib in todo:
         tmp = lib.path.with_name(f"{lib.path.name}.tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(lib.source)]
+        cmd = [nvcc, *NVCC_FLAGS, *lib.include_flags, "-o", str(tmp), str(lib.source)]
         procs.append((lib, tmp, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failures = []

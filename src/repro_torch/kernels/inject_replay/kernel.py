@@ -1,4 +1,5 @@
-"""Wrapper of the hand-written circuit-replay kernel (``csrc/inject_replay.cu``).
+"""Wrapper of the hand-written circuit-replay kernel (``csrc/inject_replay.cu``,
+whose device code is ``csrc/replay_device.cuh``).
 
 ``inject_replay_int32`` replaces the JAX package's Pallas kernel
 ``kernels/inject_replay/kernel.py::_replay_block``: exact AMR-MUL products
@@ -35,7 +36,8 @@ from ..build import CudaKernel, CudaLibrary
 from .ref import replay_matmul_ref
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-LIBRARY = CudaLibrary(_CSRC / "inject_replay.cu")
+DEVICE_HEADER = _CSRC / "replay_device.cuh"  # the replay's device code, shared with attn_fused
+LIBRARY = CudaLibrary(_CSRC / "inject_replay.cu", (DEVICE_HEADER,))
 LIBRARIES = (LIBRARY,)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

@@ -14,7 +14,12 @@ SSD scan kernel likewise, within ``ssd_scan.ref.ssd_error_bound`` of its
 plain version per output (the sums' roundings and those of the cumulative
 log decay, relative to the same function of the absolute values, per
 batch, chunk and head); copies of the SSD source with a planted fault must
-fail that check on inputs whose carried state shows.
+fail that check on inputs whose carried state shows.  The fused attention
+kernels equal their plain versions bit for bit (their softmax sums in the
+plain version's order), for every row tile, and the op stays within
+``attn_fused.ref.flip_tolerance`` of the unfused seam composition; copies
+of the LUT kernel with a planted fault in its softmax must fail the bitwise
+check.
 """
 import dataclasses
 
@@ -27,6 +32,9 @@ from repro_torch.core import lut
 from repro_torch.core import engine, reduction
 from repro_torch.kernels.amr_matmul import kernel, ops, ref
 from repro_torch.kernels import build
+from repro_torch.kernels.attn_fused import kernel as akernel
+from repro_torch.kernels.attn_fused import ops as aops
+from repro_torch.kernels.attn_fused import ref as aref
 from repro_torch.kernels.build import CudaKernel, CudaLibrary, build_all
 from repro_torch.kernels.inject_replay import kernel as rkernel
 from repro_torch.kernels.inject_replay import ref as rref
@@ -35,6 +43,8 @@ from repro_torch.kernels.ssd_scan import ref as sref
 from repro_torch.models import init_params
 from repro_torch.models.tree import tree_map
 from repro_torch.numerics import AMRNumerics
+from repro_torch.numerics import injection
+from repro_torch.numerics.quant import quantize_int8
 from repro_torch.serve import Request, ServeEngine
 
 pytestmark = pytest.mark.cuda
@@ -56,7 +66,7 @@ def _int8(shape, seed, device):
 
 def test_kernels_build(cuda, capsys):
     records = build_all(list(kernel.LIBRARIES) + list(rkernel.LIBRARIES)
-                        + list(skernel.LIBRARIES))
+                        + list(skernel.LIBRARIES) + list(akernel.LIBRARIES))
     with capsys.disabled():
         for name, rec in records.items():
             print(f"\n[build] {name}: {rec.seconds:.1f}s\n{rec.log}")
@@ -333,3 +343,150 @@ def _serve_card_and_cpu(numerics, base=None):
             eng.submit(Request(prompt=prompt, max_new_tokens=4))
         outs[dev] = [c.tokens for c in eng.run()]
     assert outs["cuda"] == outs["cpu"]
+
+
+def _attn_operands(G, M, D, T, P, seed, device, method="lut", causal=False):
+    """Quantized operands of normal q, kt, v and a ragged (or causal) mask."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = [torch.randn(shape, generator=g, device=device)
+         for shape in ((G, M, D), (G, D, T), (G, T, P))]
+    if causal:
+        mask = torch.tril(torch.ones(M, T, dtype=torch.int32, device=device)).expand(G, M, T)
+    else:
+        lengths = torch.randint(1, T + 1, (G, M, 1), generator=g, device=device)
+        mask = (torch.arange(T, device=device) < lengths).int()
+    return (*aops.quantize_operands(*x, method), mask.contiguous())
+
+
+ATTN_SHAPES = [(2, 8, 256, 24, 256, False), (1, 128, 256, 16, 256, True),
+               (2, 8, 256, 8192, 256, False), (1, 256, 256, 256, 256, True),
+               (3, 6, 40, 70, 33, False), (1, 64, 16, 1000, 24, False)]
+
+
+def _row_tiles(M):
+    return [None] + [b for b in (1, 2, 8) if M % b == 0]
+
+
+@pytest.mark.parametrize("border", [8, 14])
+@pytest.mark.parametrize("G,M,D,T,P,causal", ATTN_SHAPES)
+def test_attn_fused_lut_kernel_bitwise(cuda, border, G, M, D, T, P, causal):
+    args = _attn_operands(G, M, D, T, P, 0, cuda, causal=causal)
+    table = ops.kernel_table(border, cuda)
+    want = aref.attn_fused_lut_ref(*args, lut.table_tensor(border, cuda), 16.0)
+    for bm in _row_tiles(M):
+        before = akernel.LUT.launches
+        got = akernel.attn_fused_lut(*args, table, scale=16.0, bm=bm)
+        assert akernel.LUT.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (bm, float((got - want).abs().max()))
+
+
+@pytest.mark.parametrize("schedule", [8, 14, "dse6"])
+@pytest.mark.parametrize("G,M,D,T,P,causal", [s for s in ATTN_SHAPES if s[3] * s[1] < 10**6])
+def test_attn_fused_inject_kernel_bitwise(cuda, schedule, G, M, D, T, P, causal):
+    if schedule == "dse6":
+        handle = injection.register_schedule(reduction.get_schedule(2, 6), name="cuda:attn-b6")
+        inj = injection.get_injector(AMRNumerics("amr_inject", border=6, schedule_ref=handle))
+    else:
+        inj = engine.get_injector(2, schedule)
+    args = _attn_operands(G, M, D, T, P, 1, cuda, method="inject", causal=causal)
+    want = aref.attn_fused_inject_ref(inj, *args, 16.0, max_pairs=1 << 24)
+    for bm in _row_tiles(M):
+        before = akernel.INJECT.launches
+        got = akernel.attn_fused_inject(inj, *args, scale=16.0, bm=bm)
+        assert akernel.INJECT.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (bm, float((got - want).abs().max()))
+
+
+@pytest.mark.parametrize("method", ["lut", "inject"])
+def test_attn_fused_op_within_tolerance_of_the_seam(cuda, method):
+    """One op call, one launch; within the flip tolerance of the unfused
+    seam composition (torch.softmax) on the card."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, kt, v = (torch.randn(s, generator=g, device=cuda)
+                for s in ((2, 8, 256), (2, 256, 1000), (2, 1000, 256)))
+    mask = torch.arange(1000, device=cuda) < torch.tensor([[[700]], [[1000]]], device=cuda)
+    kern = akernel.LUT if method == "lut" else akernel.INJECT
+    before = kern.launches
+    out = aops.fused_attention(q, kt, v, mask.expand(2, 8, 1000), method=method)
+    assert kern.launches == before + 1
+    want = aops.fused_attention_reference(q, kt, v, mask.expand(2, 8, 1000), method=method)
+    q8, k8, v8, sq, sk, sv = aops.quantize_operands(q, kt, v, method)
+    table = lut.table_tensor(8, cuda)
+    qp, ps = aref.softmax_requant(ref.lut_matmul_ref(q8, k8, table), sq, sk,
+                                  mask.expand(2, 8, 1000).int(), 16.0)
+    rqp, rps = quantize_int8(aops.reference_probabilities(q, kt, mask.expand(2, 8, 1000),
+                                                          method=method), axis=-1)
+    torch.cuda.synchronize()
+    assert int((qp.int() - rqp.int()).abs().max()) <= 1
+    assert float((qp != rqp).float().mean()) <= 0.01
+    tol = aref.flip_tolerance(qp, rqp, ps, rps, sv, aref.index_step(table), want)
+    assert bool(((out - want).abs() <= tol).all())
+
+
+def test_attn_fused_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q8, k8, v8, sq, sk, sv, mask = _attn_operands(1, 4, 16, 8, 8, 3, cuda)
+    table = ops.kernel_table(8, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        akernel.attn_fused_lut(q8, k8.transpose(1, 2).contiguous().transpose(1, 2), v8, sq, sk,
+                               sv, mask, table, scale=4.0)
+    with pytest.raises(ValueError, match="devices"):
+        akernel.attn_fused_lut(q8, k8, v8, sq, sk, sv, mask.cpu(), table, scale=4.0)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = _attn_operands(1, 1, 16, 60000, 8, 3, cuda)
+        akernel.attn_fused_lut(*big, table, scale=4.0)
+
+
+# planted faults in copies of the LUT kernel's softmax (attn_softmax.cuh):
+# the bitwise check must see each of them
+ATTN_PLANTS = {
+    "fast_exp": ("const float e = expf(", "const float e = __expf("),
+    "sum_order": ("for (int o = 16; o > 0; o >>= 1) sum =", "for (int o = 1; o < 32; o <<= 1) sum ="),
+    # ps = amax * (1 / 127), what PyTorch runs on the card for a division
+    # by a Python number
+    "reciprocal_scale": ("__fdiv_rn(fmaxf(amax, 1e-8f), 127.0f)",
+                         "__fmul_rn(fmaxf(amax, 1e-8f), 1.0f / 127.0f)"),
+}
+
+
+@pytest.fixture(scope="module")
+def attn_plants(tmp_path_factory):
+    """One planted copy of attn_fused_lut.cu (with its header) per fault."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    src = akernel.LUT_LIBRARY.source.read_text()
+    (header,) = akernel.LUT_LIBRARY.headers
+    text = header.read_text()
+    root = tmp_path_factory.mktemp("attn_plants")
+    libs = {}
+    for name, (old, new) in ATTN_PLANTS.items():
+        assert text.count(old) == 1, name
+        (root / name).mkdir()
+        (root / name / header.name).write_text(text.replace(old, new))
+        (root / name / "attn_fused_lut.cu").write_text(src)
+        libs[name] = CudaLibrary(root / name / "attn_fused_lut.cu", (root / name / header.name,))
+    with pytest.MonkeyPatch.context() as mp:  # the planted libraries stay out of the checkout
+        mp.setattr(build, "BUILD_DIR", root)
+        build_all(list(libs.values()))
+        for lib in libs.values():
+            lib.handle()
+    return libs
+
+
+@pytest.mark.parametrize("plant", list(ATTN_PLANTS))
+def test_attn_fused_check_fails_a_planted_fault(cuda, attn_plants, monkeypatch, capsys, plant):
+    """128 rows over gemma-2b's 8192-token context: a planted fault changes bits."""
+    args = _attn_operands(2, 64, 256, 8192, 256, 4, cuda)
+    table = ops.kernel_table(8, cuda)
+    want = aref.attn_fused_lut_ref(*args, lut.table_tensor(8, cuda), 16.0)
+    assert torch.equal(akernel.attn_fused_lut(*args, table, scale=16.0), want)
+    monkeypatch.setattr(akernel, "LUT", CudaKernel("attn_fused_lut", attn_plants[plant],
+                                                   "attn_fused_lut", akernel.LUT.argtypes))
+    got = akernel.attn_fused_lut(*args, table, scale=16.0)
+    torch.cuda.synchronize()
+    differ = float((got != want).float().mean())
+    with capsys.disabled():
+        print(f"\n[plant] {plant}: {differ:.4f} of the outputs differ, max |diff| "
+              f"{float((got - want).abs().max()):.3g}")
+    assert differ > 0.0

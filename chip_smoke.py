@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent PARENT_TREE]
 
 Phases (any failure raises, and the run exits non-zero):
 
@@ -15,16 +15,27 @@ Phases (any failure raises, and the run exits non-zero):
    sum_r |u v|) of its plain version and within K * sigma_{r+1} (plus that
    slack) of the bit-exact table sums, the circuit-replay kernel bit for
    bit against its plain version and against the gather kernel on the same
-   operands at border 8 and 14, and against the float64 integer product on
-   the exact schedule (border None); time kernel, plain version and, for
-   the low-rank kernel, one ``torch.matmul`` on the prebuilt augmented
-   operands (the yardstick); the SSD chunked-scan kernel within
+   operands at border 8 and 14 (and, at the decode shapes, on the border-6
+   schedule), and against the float64 integer product on the exact
+   schedule (border None), every replay program on the build's LOP3
+   immediates alone (``generic_ops`` 0, printed); time kernel, plain
+   version and, for the low-rank kernel, one ``torch.matmul`` on the
+   prebuilt augmented operands (the yardstick), both also as device time
+   under ``torch.profiler`` (``device_ms``: at N = 256 the wrapper's host
+   time holds the event times); the SSD chunked-scan kernel within
    ``ssd_scan.ref.ssd_error_bound`` of its plain version, per output, in
    full and split mode, at the mamba2-370m prefill shape (S = 16 in a
    256-row chunk) and at S = 1024 (4 chunks) with the model's dt, and at
    S = 1024 with dt scaled so that the state carried from chunk to chunk
    exceeds the bound a hundredfold (the model's dt decays it to 0 within a
    chunk, where no check can see it);
+2b. A/B, with ``--parent`` (a tree of the parent commit, for example
+   ``git archive`` unpacked under ``build/``): the low-rank kernel, the
+   replay kernel (border 8) and the fused attention inject kernel at the
+   gemma-2b path's shapes, parent, change, change, parent, each run a
+   process of its own that builds its tree's kernels; where a call takes
+   less than 0.2 ms, its event time over 200 calls, its device time and
+   its host time (the wrapper's checks, plan and launch) side by side;
 3. reference — reduced gemma-2b in float32 on the card (kernels) and on
    the CPU (plain versions), same weights, under amr_kernel rank 0 and 8
    and amr_inject, and reduced mamba2-370m under exact (SSD kernel in full
@@ -90,6 +101,7 @@ the kernels' numbers, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -153,6 +165,55 @@ def time_ms(fn, arg_sets, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, arg_sets, reps: int) -> float:
+    """Mean device ms per call: the self time of every CUDA kernel that
+    ``reps`` calls launch under torch.profiler, over ``reps`` (the host's
+    share of a call, which ``time_ms`` includes when calls are short, is
+    left out)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return us / reps / 1e3
+
+
+def host_ms(fn, arg_sets, reps: int) -> float:
+    """Mean host ms per call: the wall time of ``reps`` back-to-back calls
+    before the card is waited on.  The launches queue, so where the device
+    keeps up this is the host's share of a call (checks, launch plan,
+    allocation, launch)."""
+    import torch
+
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fn(*arg_sets[i % len(arg_sets)])
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / reps * 1e3
+
+
+def call_times(fn, arg_sets, reps: int) -> dict:
+    """``ms`` by CUDA events over ``reps`` calls; below 0.2 ms, where the
+    host may hold it, over 200 calls, with ``device_ms`` and ``host_ms``."""
+    ms = time_ms(fn, arg_sets, reps)
+    if ms >= 0.2:
+        return dict(ms=ms)
+    return dict(ms=time_ms(fn, arg_sets, 200), device_ms=device_ms(fn, arg_sets, 50),
+                host_ms=host_ms(fn, arg_sets, 200))
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
@@ -309,9 +370,11 @@ def phase_kernels(device, cfg, mamba_cfg) -> dict:
             rows["lowrank"].append(dict(
                 border=BORDER, rank=RANK, shape=(m, k, n), max_abs_err=err, gap_vs_exact=gap,
                 k_sigma=k * sigma, bound_ms=b_ms, bound_by=b_by,
-                ms=time_ms(kernel.amr_matmul_int8, args, 10),
+                ms=time_ms(kernel.amr_matmul_int8, args, 50),
                 plain_ms=time_ms(ref.lowrank_matmul_ref, [(a, bs[0], u, v)], 2),
-                library_ms=time_ms(torch.matmul, [(a_aug, b_aug)], 10)))
+                library_ms=time_ms(torch.matmul, [(a_aug, b_aug)], 50),
+                device_ms=device_ms(kernel.amr_matmul_int8, args, 20),
+                library_device_ms=device_ms(torch.matmul, [(a_aug, b_aug)], 20)))
             del ua, vb, a_aug, b_aug
     rows["replay"] = replay_kernel_rows(device, dense_m, dense_kn, grouped, int_rate)
     rows["ssd"] = ssd_kernel_rows(device, mamba_cfg)
@@ -324,8 +387,10 @@ def phase_kernels(device, cfg, mamba_cfg) -> dict:
 def replay_kernel_rows(device, dense_m, dense_kn, grouped, int_rate) -> list[dict]:
     """The circuit-replay kernel at every dense and grouped shape of the
     amr_inject path: bit for bit against its plain version and against the
-    gather kernel (the same schedule's table) at border 8 and 14, and
-    against the float64 integer product on the exact schedule."""
+    gather kernel (the same schedule's table) at border 8 and 14, and at
+    the decode shapes on the border-6 schedule, and against the float64
+    integer product on the exact schedule.  Every program runs on the
+    build's LOP3 immediates alone (generic_ops 0)."""
     import torch
 
     from repro_torch.core import engine, reduction
@@ -343,6 +408,15 @@ def replay_kernel_rows(device, dense_m, dense_kn, grouped, int_rate) -> list[dic
     exact = engine.compile_injector(reduction.get_schedule(2, None))
     if exact.max_abs_product != 128 * 128:
         raise AssertionError(f"exact schedule: max|product| {exact.max_abs_product}")
+    for border in (None, 6, 8, 14):
+        inj = exact if border is None else engine.get_injector(2, border)
+        prog = rkernel.program_tensors(inj, device)[0]
+        log(f"[kernel] replay program, border {border}: {prog.n_ops} ops in {prog.n_runs} runs, "
+            f"{prog.n_slots} wire slots, generic_ops {prog.generic_ops} (cells whose truth-table "
+            f"pair is not among the build's {len(rkernel.CELL_PAIRS)} LOP3 immediate pairs)")
+        if prog.generic_ops != 0:
+            raise AssertionError(f"replay program, border {border}: {prog.generic_ops} cells "
+                                 f"outside the kernel's LOP3 immediates")
     out = []
     for g, m, k, n, grouped_b in cases:
         ia = idx((g, m, k))
@@ -353,7 +427,10 @@ def replay_kernel_rows(device, dense_m, dense_kn, grouped, int_rate) -> list[dic
         if not torch.equal(got.double(), want):
             raise AssertionError(f"replay kernel, exact schedule, {(g, m, k, n)}: differs from "
                                  f"the integer product")
-        for border in (8, 14):
+        # border 6, the schedule phase 4 registers as a DSE candidate, at the decode shapes
+        decode = m == SLOTS if not grouped_b else (g, m, k, n) in (grouped["decode qk"],
+                                                                   grouped["decode pv"])
+        for border in (8, 14, 6) if decode else (8, 14):
             inj = engine.get_injector(2, border)
             got = rkernel.inject_replay_int32(inj, ia, ib)
             want = rref.replay_matmul_ref(inj, ia, ib, max_pairs=PLAIN_REPLAY_PAIRS)
@@ -373,9 +450,17 @@ def replay_kernel_rows(device, dense_m, dense_kn, grouped, int_rate) -> list[dic
                                replay_ops(inj, out_words * k, out_words), int_rate)
             n_copies = min(copies(4 * ib.numel()), 16)
             args = [(inj, ia, ib)] + [(inj, ia, idx(tuple(ib.shape))) for _ in range(n_copies - 1)]
+            k_chunk, wpb, rpb, items = rkernel.launch_plan(inj, ia.device, g, m, n, k,
+                                                           grouped_b)[1][-4:]
+            launch = dict(items=items, wpb=wpb, rpb=rpb, k_chunk=k_chunk,
+                          blocks=g * math.ceil(math.ceil(n / 32) / wpb) * math.ceil(m / rpb)
+                          * math.ceil(k / k_chunk),
+                          blocks_per_sm=rkernel.blocks_per_sm(
+                              items, rkernel.program_tensors(inj, device)[0], wpb, rpb))
             out.append(dict(
-                border=border, shape=(g, m, k, n), max_abs_err=0.0, bound_ms=b_ms,
+                border=border, shape=(g, m, k, n), launch=launch, max_abs_err=0.0, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, ms=time_ms(rkernel.inject_replay_int32, args, 10),
+                device_ms=device_ms(rkernel.inject_replay_int32, args, 10),
                 plain_ms=time_ms(lambda *a: rref.replay_matmul_ref(
                     *a, max_pairs=PLAIN_REPLAY_PAIRS), [(inj, ia, ib)], 1)))
     return out
@@ -461,6 +546,91 @@ def ssd_kernel_rows(device, mcfg) -> list[dict]:
                 ms=time_ms(lambda *a: skernel.ssd_scan(*a, Q, split=split), [args], 50),
                 plain_ms=time_ms(lambda *a: sref.ssd_ref(*a, Q, split=split), [args], 5)))
     return out
+
+
+def time_kernels() -> dict:
+    """Times (``call_times``) of the low-rank kernel, the replay kernel
+    (border 8) and the fused attention inject kernel (border 8) at the
+    gemma-2b path's shapes, from whichever ``repro_torch`` is first on
+    sys.path: the same calls with the same seeded operands in this tree and
+    in a parent's."""
+    import torch
+
+    from repro_torch.configs import gemma_2b
+    from repro_torch.core import engine, lut
+    from repro_torch.kernels.amr_matmul import kernel
+    from repro_torch.kernels.attn_fused import kernel as akernel
+    from repro_torch.kernels.inject_replay import kernel as rkernel
+
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(5)
+    dense_m, dense_kn, grouped = path_shapes(gemma_2b.CONFIG)
+    out: dict[str, dict] = {"lowrank": {}, "replay": {}, "attn_fused_inject": {}}
+    u, v = lut.factor_tensors(BORDER, RANK, device)
+    for m in dense_m:
+        for k, n in dense_kn:
+            a = _int8((m, k), gen, device)
+            args = [(a, _int8((k, n), gen, device), u, v) for _ in range(min(copies(k * n), 64))]
+            out["lowrank"][str((m, k, n))] = call_times(kernel.amr_matmul_int8, args, 20)
+    inj = engine.get_injector(2, BORDER)
+
+    def idx(shape):
+        return torch.randint(0, 256, shape, generator=gen, device=device, dtype=torch.int32)
+
+    cases = [(1, m, k, n, False) for m in dense_m for k, n in dense_kn]
+    cases += [(g, m, k, n, True) for g, m, k, n in grouped.values()]
+    for g, m, k, n, grouped_b in cases:
+        ia = idx((g, m, k))
+        n_copies = min(copies(4 * k * n * (g if grouped_b else 1)), 16)
+        args = [(inj, ia, idx((g, k, n) if grouped_b else (k, n))) for _ in range(n_copies)]
+        out["replay"][str((g, m, k, n))] = call_times(rkernel.inject_replay_int32, args, 10)
+    for label, (G, M, T) in (("served decode", (SLOTS, 8, CAPACITY)),
+                             ("long decode", (SLOTS, 8, ATTN_CONTEXT))):
+        D = P = gemma_2b.CONFIG.head_dim
+        lens = torch.tensor([T - T // 8, T], device=device)
+        args = (_int8((G, M, D), gen, device), _int8((G, D, T), gen, device),
+                _int8((G, T, P), gen, device),
+                torch.rand((G, M, 1), generator=gen, device=device) / 127,
+                torch.rand((G, 1, T), generator=gen, device=device) / 127,
+                torch.rand((G, 1, P), generator=gen, device=device) / 127,
+                (torch.arange(T, device=device) < lens[:, None, None]).int()
+                .expand(G, M, T).contiguous())
+        out["attn_fused_inject"][label] = dict(ms=time_ms(
+            lambda *a: akernel.attn_fused_inject(inj, *a, scale=D ** 0.5), [args],
+            _reps(lambda *a: akernel.attn_fused_inject(inj, *a, scale=D ** 0.5), args)))
+    return out
+
+
+def phase_ab(parent: Path) -> dict:
+    """The low-rank, replay and fused inject kernels of this tree against a
+    parent tree's on one card: parent, change, change, parent, each a
+    process of its own that builds its tree's kernels (``--time-kernels``).
+    Prints each shape's four times of each kind (event, and below 0.2 ms
+    device and host) and the parent / change ratio of the means."""
+    runs = []
+    for label, src in (("parent", parent / "src"), ("change", ROOT / "src"),
+                       ("change", ROOT / "src"), ("parent", parent / "src")):
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--time-kernels", str(src)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"[ab] {label} run failed ({proc.returncode}):\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        runs.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
+        log(f"[ab] {label} run from {src} in {time.perf_counter() - t0:.1f}s")
+    table = {}
+    for kind in ("lowrank", "replay", "attn_fused_inject"):
+        for key, times in runs[1][1][kind].items():
+            for what in times:
+                parent_ms = [r[kind].get(key, {}).get(what) for lab, r in runs if lab == "parent"]
+                change_ms = [r[kind][key].get(what) for lab, r in runs if lab == "change"]
+                ratio = (sum(parent_ms) / sum(change_ms)
+                         if None not in parent_ms + change_ms else None)
+                table[f"{kind} {key} {what}"] = dict(parent_ms=parent_ms, change_ms=change_ms,
+                                                     parent_over_change=ratio)
+                log(f"[ab] {kind} {key} {what}: parent {parent_ms}, change {change_ms}, "
+                    f"parent/change {ratio}")
+    return table
 
 
 def phase_reference(device) -> None:
@@ -886,7 +1056,16 @@ def profile_serve(device, card: str, cfg, params, prompts, gen: int) -> None:
             log(f"[profile]   {dev_us / 1e3:9.3f} ms  {count:6d} calls  {key[:100]}")
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parent", type=Path, default=None,
+                        help="a parent tree of the repo (git archive): time its low-rank, replay "
+                             "and fused inject kernels against this tree's in this call")
+    parser.add_argument("--time-kernels", type=Path, default=None, metavar="SRC",
+                        help=argparse.SUPPRESS)  # one timing process of --parent's A/B
+    args = parser.parse_args(argv)
+    if args.time_kernels is not None:
+        sys.path.insert(0, str(args.time_kernels.resolve()))
     try:
         import torch
     except ImportError:
@@ -903,6 +1082,12 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products stay float32
     torch.backends.cudnn.allow_tf32 = False
+    if args.time_kernels is not None:
+        print(json.dumps(time_kernels()), flush=True)
+        return 0
+    if args.parent is not None and not (args.parent / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: --parent {args.parent} holds no src/repro_torch", file=sys.stderr)
+        return 1
     device = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -911,6 +1096,12 @@ def main() -> int:
     phase_build()
     card = card_line()
     rows = phase_kernels(device, gemma_2b.CONFIG, mamba2_370m.CONFIG)
+    if args.parent is not None:
+        t0 = time.perf_counter()
+        phase_ab(args.parent.resolve())
+        log(f"[ab] phase {time.perf_counter() - t0:.1f}s")
+    else:
+        log("[ab] no --parent tree: the same-call A/B against the parent's kernels is not run")
     phase_reference(device)
     gemma_params = model_params(device, gemma_2b.CONFIG)
     t0 = time.perf_counter()

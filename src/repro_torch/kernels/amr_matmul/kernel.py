@@ -41,11 +41,12 @@ LUT = CudaKernel("amr_matmul_int8_lut", LUT_LIBRARY, "amr_lut_matmul",
 LUT_GROUPED = CudaKernel("amr_matmul_int8_lut_grouped", LUT_LIBRARY, "amr_lut_matmul_grouped",
                          [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P])
 LOWRANK = CudaKernel("amr_matmul_int8", LOWRANK_LIBRARY, "amr_lowrank_matmul",
-                     [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P])
+                     [_P] * 7 + [_I] * 6 + [_P])
 KERNELS = (LUT, LUT_GROUPED, LOWRANK)
 
 LOWRANK_RANKS = (1, 2, 4, 8, 16)  # ranks the low-rank kernel is instantiated for
-_LOWRANK_CHUNK = 512              # kChunk in lowrank_matmul.cu
+LOWRANK_CHUNK = 256               # kChunk in lowrank_matmul.cu: K per chunk
+_LOWRANK_CGB = (16, 8, 4, 2)      # column groups of 4 per block, widest first
 _LUT_ROWS, _LUT_COLS = 16, 256    # kRows, kThreads in lut_matmul.cu
 _MIN_K_CHUNK = 128
 
@@ -97,6 +98,38 @@ def _k_chunk(tiles: int, K: int, device: torch.device) -> int:
     splits = min(max(1, math.ceil(2 * _sm_count(device) / tiles)),
                  max(1, math.ceil(K / _MIN_K_CHUNK)))
     return math.ceil(K / splits)
+
+
+@lru_cache(maxsize=256)
+def lowrank_launch_shape(M: int, N: int, K: int, sms: int) -> tuple[int, int, int, int]:
+    """(rt, cgb, chunks, tiles) of the low-rank kernel: rows per thread (2 up
+    to M = 2, else 8), column groups of 4 per block, K chunks and tiles.
+
+    The chunk count depends on K alone, so the summation order does; cgb
+    is the widest that still gives a tile per SM, or 2.  The kernel
+    launches min(tiles, the blocks that fit on the card) blocks.
+    """
+    rt = 2 if M <= 2 else 8
+    chunks = math.ceil(K / LOWRANK_CHUNK)
+    for cgb in _LOWRANK_CGB:
+        tiles = math.ceil(N / (4 * cgb)) * math.ceil(M / rt) * chunks
+        if tiles >= sms:
+            break
+    return rt, cgb, chunks, tiles
+
+
+# per (device, stream): the low-rank kernel's chunk counters, which it leaves zero
+_LOWRANK_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _lowrank_counters(device: torch.device, stream: int, n: int) -> int:
+    """Address of at least n zero int32 counters for ``stream``."""
+    key = (device.index, stream)
+    counters = _LOWRANK_COUNTERS.get(key)
+    if counters is None or counters.numel() < n:
+        counters = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _LOWRANK_COUNTERS[key] = counters
+    return counters.data_ptr()
 
 
 def _lut_tiles(M: int, N: int) -> int:
@@ -153,7 +186,9 @@ def amr_matmul_int8(a: torch.Tensor, b: torch.Tensor, u: torch.Tensor,
     approximate products ``A @ B + U[A] . V[B]``.
 
     The CUDA kernel sums in an order fixed by K alone (see
-    ``csrc/lowrank_matmul.cu``) and takes r in ``LOWRANK_RANKS``.
+    ``csrc/lowrank_matmul.cu``) and takes r in ``LOWRANK_RANKS``.  Its
+    output and the chunk partials share one allocation; the chunk counters
+    are cached per device and stream.
     """
     _check("a", a, (torch.int8,), 2)
     _check("b", b, (torch.int8,), 2)
@@ -170,10 +205,15 @@ def amr_matmul_int8(a: torch.Tensor, b: torch.Tensor, u: torch.Tensor,
     if r not in LOWRANK_RANKS:
         raise ValueError(f"the low-rank CUDA kernel takes rank in {LOWRANK_RANKS}, got {r}")
     _check_cuda(a=a, b=b, u=u, v=v)
-    chunks = math.ceil(K / _LOWRANK_CHUNK)
-    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    partial = torch.empty((chunks, M, N) if chunks > 1 else (1,), dtype=torch.float32,
-                          device=a.device)
-    LOWRANK(a.data_ptr(), b.data_ptr(), u.data_ptr(), v.data_ptr(), partial.data_ptr(),
-            chunks, out.data_ptr(), M, N, K, r, _stream())
-    return out
+    if u.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("u and v must start on 16-byte boundaries for the CUDA kernel")
+    rt, cgb, chunks, _ = lowrank_launch_shape(M, N, K, _sm_count(a.device))
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    buf = torch.empty((1 + (chunks if chunks > 1 else 0), M, N), dtype=torch.float32,
+                      device=a.device)  # out, then the chunk partials
+    counters = (_lowrank_counters(a.device, stream, math.ceil(N / (4 * cgb)) * math.ceil(M / rt))
+                if chunks > 1 else 0)
+    out = buf.data_ptr()
+    LOWRANK(a.data_ptr(), b.data_ptr(), u.data_ptr(), v.data_ptr(), out + 4 * M * N, counters,
+            out, M, N, K, r, rt, cgb, stream)
+    return buf[0]

@@ -29,8 +29,11 @@
 //
 // What bounds it on this card: integer and logic operations, the replay's
 // per 32-pair word (chip_smoke.replay_ops) for G M ceil(T/32) D words of
-// QK^T and G M ceil(P/32) T words of PV.  Like the replay matmul it runs
-// latency-bound: each op waits on the shared-memory write of the op before.
+// QK^T and G M ceil(P/32) T words of PV.  It takes the replay's loop with
+// one item a thread (J = 1): its blocks hold a slab of scores beside the
+// wire slots, and more items would multiply the slots.  The LOP3
+// immediates and the carry-save accumulator of the shared device code
+// apply; each op still waits on the shared-memory loads of its inputs.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -63,8 +66,8 @@ __global__ void __launch_bounds__(kThreads) attn_fused_inject_kernel(const Param
   extern __shared__ uint32_t smem[];
   uint32_t* s_slots = smem;                                   // [slot][thread]
   uint32_t* s_y = s_slots + p.n_slots * kThreads;             // [k-lane][bit][word]
-  uint32_t* s_ops = s_y + kThreads * p.n_opbits;             // 8-byte aligned: kThreads is even
-  uint32_t* s_vbits = s_ops + 2 * p.n_ops;
+  uint2* s_ops = reinterpret_cast<uint2*>(s_y + kThreads * p.n_opbits);  // kThreads is even
+  uint32_t* s_vbits = reinterpret_cast<uint32_t*>(s_ops + p.n_ops);
   uint32_t* s_fin = s_vbits + 256;
   float* s_ps = reinterpret_cast<float*>(s_fin + 2 * replay::kPos);
   float* slab = s_ps + kMaxRows;                              // [rows][T]
@@ -92,12 +95,12 @@ __global__ void __launch_bounds__(kThreads) attn_fused_inject_kernel(const Param
           const bool active = row < nr && word0 + tid % wpb < n_words;
           const int8_t* q_row = p.q + (row0 + (active ? row : 0)) * p.D;
           uint32_t acc[32];
-          const uint32_t n_k = replay::replay_tile<kThreads>(
+          const uint32_t n_k = replay::replay_tile<kThreads, 1>(
               acc, s_ops, p.n_ops, s_vbits, p.n_opbits, s_fin, s_slots, s_y, wpb, rpb, word0,
               p.T, active, 0, p.D,
               [&](int k) { return int(q_row[k]) + 128; },
               [&](int k, int col) { return int(kt_g[size_t(k) * p.T + col]) + 128; });
-          replay::reduce_tile<kThreads>(
+          replay::reduce_tile<kThreads, 1>(
               acc, n_k * uint32_t(p.offset), s_slots, wpb, rpb,
               [&](int r, int w, int l, uint32_t sum) {
                 const int rr = r0 + r;
@@ -130,12 +133,12 @@ __global__ void __launch_bounds__(kThreads) attn_fused_inject_kernel(const Param
           const bool active = row < nr && word0 + tid % wpb < n_words;
           const int32_t* idx_row = s_idx + (active ? row : 0) * p.T;
           uint32_t acc[32];
-          const uint32_t n_k = replay::replay_tile<kThreads>(
+          const uint32_t n_k = replay::replay_tile<kThreads, 1>(
               acc, s_ops, p.n_ops, s_vbits, p.n_opbits, s_fin, s_slots, s_y, wpb, rpb, word0,
               p.P, active, 0, p.T,
               [&](int k) { return idx_row[k]; },
               [&](int k, int col) { return int(v_g[size_t(k) * p.P + col]) + 128; });
-          replay::reduce_tile<kThreads>(
+          replay::reduce_tile<kThreads, 1>(
               acc, n_k * uint32_t(p.offset), s_slots, wpb, rpb,
               [&](int r, int w, int l, uint32_t sum) {
                 const int rr = r0 + r;
@@ -158,7 +161,7 @@ size_t smem_bytes(int n_slots, int n_opbits, int n_ops, int rows, int T) {
 }
 
 bool valid_shape(int wpb, int rpb) {
-  return wpb >= 1 && rpb >= 1 && kThreads % (wpb * rpb) == 0;
+  return wpb >= 1 && rpb >= 1 && (wpb & (wpb - 1)) == 0 && kThreads % (wpb * rpb) == 0;
 }
 
 }  // namespace
@@ -177,8 +180,9 @@ int attn_fused_inject(const int8_t* q, const int8_t* kt, const int8_t* v, const 
                       float scale, int G, int M, int D, int T, int P, int bm, int rows,
                       int qk_wpb, int qk_rpb, int pv_wpb, int pv_rpb, void* stream) {
   if (G < 1 || M < 1 || D < 1 || T < 1 || P < 1 || bm < 1 || M % bm != 0 || rows < 1 ||
-      rows > kMaxRows || n_ops < 1 || n_opbits < 1 || n_opbits > 32 || n_slots < 32 ||
-      n_slots > 256 || !valid_shape(qk_wpb, qk_rpb) || !valid_shape(pv_wpb, pv_rpb)) {
+      rows > kMaxRows || n_ops < 1 || n_opbits < 1 || n_opbits > replay::kMaxOpBits ||
+      n_slots < 32 || n_slots > 256 || !valid_shape(qk_wpb, qk_rpb) ||
+      !valid_shape(pv_wpb, pv_rpb)) {
     return int(cudaErrorInvalidValue);
   }
   if (G > 65535) return int(cudaErrorInvalidConfiguration);

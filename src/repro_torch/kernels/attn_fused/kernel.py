@@ -41,7 +41,8 @@ from .ref import attn_fused_inject_ref, attn_fused_lut_ref
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOFTMAX = _CSRC / "attn_softmax.cuh"
 LUT_LIBRARY = CudaLibrary(_CSRC / "attn_fused_lut.cu", (_SOFTMAX,))
-INJECT_LIBRARY = CudaLibrary(_CSRC / "attn_fused_inject.cu", (_SOFTMAX, rkernel.DEVICE_HEADER))
+INJECT_LIBRARY = CudaLibrary(_CSRC / "attn_fused_inject.cu", (_SOFTMAX, rkernel.DEVICE_HEADER),
+                             rkernel.DEFINES)
 LIBRARIES = (LUT_LIBRARY, INJECT_LIBRARY)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -151,7 +152,7 @@ def attn_fused_inject(inj: CompiledInjector, q, kt, v, sq, sk, sv, mask, *, scal
     _check_cuda(q=q, kt=kt, v=v, sq=sq, sk=sk, sv=sv, mask=mask)
     prog, ops, fin, vbits = rkernel.program_tensors(inj, q.device)
     fixed = 4 * (prog.n_slots * rkernel.THREADS + rkernel.THREADS * prog.n_opbits
-                 + 2 * prog.ops.shape[0] + _INJECT_FIXED_WORDS)
+                 + prog.ops.size + _INJECT_FIXED_WORDS)
     rows = _sub_tile_rows(bm, fixed, 4 * T, T)
     qk_wpb, qk_rpb, _ = rkernel.block_shape(rows, -(-T // 32))
     pv_wpb, pv_rpb, _ = rkernel.block_shape(rows, -(-P // 32))

@@ -52,22 +52,27 @@ class BuildRecord:
 
 
 class CudaLibrary:
-    """One CUDA source and the headers it includes, built into a shared
-    library at first use."""
+    """One CUDA source, the headers it includes and its compiler
+    definitions, built into a shared library at first use."""
 
-    def __init__(self, source: Path, headers: tuple[Path, ...] = ()):
+    def __init__(self, source: Path, headers: tuple[Path, ...] = (),
+                 defines: tuple[str, ...] = ()):
         self.source = source
         self.headers = tuple(headers)
+        self.defines = tuple(defines)  # "NAME=VALUE" compiler definitions
         self._handle: ctypes.CDLL | None = None
 
     @property
-    def include_flags(self) -> list[str]:
-        return [f"-I{d}" for d in dict.fromkeys(str(h.parent) for h in self.headers)]
+    def flags(self) -> list[str]:
+        """nvcc's include directories and definitions for this library."""
+        return ([f"-I{d}" for d in dict.fromkeys(str(h.parent) for h in self.headers)]
+                + [f"-D{d}" for d in self.defines])
 
     @property
     def path(self) -> Path:
         text = b"".join(f.read_bytes() for f in (self.source, *self.headers))
-        digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        flags = " ".join((*NVCC_FLAGS, *self.defines))
+        digest = hashlib.sha256(text + flags.encode()).hexdigest()[:16]
         return BUILD_DIR / f"{self.source.stem}-{digest}.so"
 
     def handle(self) -> ctypes.CDLL:
@@ -98,7 +103,7 @@ def build_all(libraries: list[CudaLibrary]) -> dict[str, BuildRecord]:
     procs = []
     for lib in todo:
         tmp = lib.path.with_name(f"{lib.path.name}.tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, *lib.include_flags, "-o", str(tmp), str(lib.source)]
+        cmd = [nvcc, *NVCC_FLAGS, *lib.flags, "-o", str(tmp), str(lib.source)]
         procs.append((lib, tmp, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failures = []

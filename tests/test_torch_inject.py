@@ -147,7 +147,7 @@ def _lop3(tt, a, b, c):
 
 
 def _transpose32(v):
-    """csrc/inject_replay.cu's transpose32, on a list of 32 uint32 arrays."""
+    """csrc/replay_device.cuh's transpose32, on a list of 32 uint32 arrays."""
     masks = (0x0000FFFF, 0x00FF00FF, 0x0F0F0F0F, 0x33333333, 0x55555555)
     for level, m in enumerate(masks):
         j = 16 >> level
@@ -159,10 +159,19 @@ def _transpose32(v):
     return v
 
 
+def _csa_add(s, c, x):
+    """replay_device.cuh's csa_add: (s, c) += x in carry-save form."""
+    carries = [_lop3(0xE8, s[q], c[q], x[q]) for q in range(32)]
+    s = [_lop3(0x96, s[q], c[q], x[q]) for q in range(32)]
+    return s, [np.zeros_like(carries[0])] + carries[:31]
+
+
 def _kernel_model(prog, ia, ib):
     """The kernel's arithmetic over all (row, word) threads at once: the
-    program over wire slots, the bit-sliced accumulator, the transpose and
-    the offset.  ia (M, K), ib (K, N) indices -> int64 (M, N)."""
+    program's runs over wire slots (a run's cells with the pair its header
+    names in ``CELL_PAIRS``, gates as the select of y by two masks per x),
+    the carry-save accumulator and its ripple, the transpose and the offset.
+    ia (M, K), ib (K, N) indices -> int64 (M, N)."""
     M, K = ia.shape
     N = ib.shape[1]
     W = -(-N // 32)
@@ -174,26 +183,42 @@ def _kernel_model(prog, ia, ib):
     for j in range(prog.n_opbits):
         bit_j = (lane_bits >> np.uint32(j)) & np.uint32(1)
         y[:, j] = (bit_j << lanes).sum(-1, dtype=np.uint32)
-    acc = [np.zeros((M, W), np.uint32) for _ in range(32)]
+
+    def mask(tt, bit):
+        return np.uint32(0xFFFFFFFF) if (tt >> bit) & 1 else np.uint32(0)
+
+    s = [np.zeros((M, W), np.uint32) for _ in range(32)]
+    c = [np.zeros((M, W), np.uint32) for _ in range(32)]
+    zero = np.zeros((M, W), np.uint32)
     for k in range(K):
         xb = prog.value_bits[ia[:, k]][:, None]                 # (M, 1)
-        slots = [np.zeros((M, W), np.uint32) for _ in range(prog.n_slots)]
-        for op0, op1 in prog.ops:
-            f0, f1, f2 = op0 & 0xFF, (op0 >> 8) & 0xFF, (op0 >> 16) & 0xFF
-            if op0 >> 24 == 0:
-                xm = (np.uint32(0) - ((xb >> np.uint32(f0)) & np.uint32(1))).astype(np.uint32)
-                yw = y[k, f1][None, :]
-                slots[op1 & 0xFF] = _lop3((op1 >> 16) & 0xFF, xm, yw, yw)
-            else:
-                a, b, c = slots[f0], slots[f1], slots[f2]
-                s, cy = _lop3((op1 >> 16) & 0xFF, a, b, c), _lop3(op1 >> 24, a, b, c)
-                slots[op1 & 0xFF], slots[(op1 >> 8) & 0xFF] = s, cy
-        carry = cin = np.zeros((M, W), np.uint32)
-        for q in range(32):
-            x0 = slots[prog.fin[q, 0]] if q < tkernel.POSITIONS else np.uint32(0)
-            x1 = slots[prog.fin[q, 1]] if q < tkernel.POSITIONS else np.uint32(0)
-            s, cout = _lop3(0x96, acc[q], x0, x1), _lop3(0xE8, acc[q], x0, x1)
-            acc[q], carry, cin = _lop3(0x96, s, cin, carry), _lop3(0xE8, s, cin, carry), cout
+        slots = [zero for _ in range(prog.n_slots)]
+        i = 0
+        while i < prog.ops.shape[0]:
+            count, case = prog.ops[i]
+            assert count >> 24 == 2                              # a run header
+            for op0, op1 in prog.ops[i + 1:i + 1 + (count & 0xFFFFFF)]:
+                f0, f1, f2 = op0 & 0xFF, (op0 >> 8) & 0xFF, (op0 >> 16) & 0xFF
+                tt0, tt1 = (op1 >> 16) & 0xFF, op1 >> 24
+                if op0 >> 24 == 0:
+                    xm = (np.uint32(0) - ((xb >> np.uint32(f0)) & np.uint32(1))).astype(np.uint32)
+                    yw = y[k, f1][None, :]
+                    slots[op1 & 0xFF] = _lop3(0xCA, xm, _lop3(0xCA, yw, mask(tt0, 7), mask(tt0, 4)),
+                                              _lop3(0xCA, yw, mask(tt0, 3), mask(tt0, 0)))
+                else:
+                    if case != tkernel.GENERIC:
+                        tt0, tt1 = tkernel.CELL_PAIRS[case]
+                    a, b, cc = slots[f0], slots[f1], slots[f2]
+                    slots[op1 & 0xFF], slots[(op1 >> 8) & 0xFF] = (_lop3(tt0, a, b, cc),
+                                                                   _lop3(tt1, a, b, cc))
+            i += 1 + (count & 0xFFFFFF)
+        for row in (0, 1):
+            x = [slots[prog.fin[q, row]] if q < tkernel.POSITIONS else zero for q in range(32)]
+            s, c = _csa_add(s, c, x)
+    acc, carry = [], zero
+    for q in range(32):  # the carry-save pair resolved by one ripple
+        acc.append(_lop3(0x96, s[q], c[q], carry))
+        carry = _lop3(0xE8, s[q], c[q], carry)
     lanes = np.stack(_transpose32(acc), -1)                      # (M, W, 32)
     sums = (lanes - np.uint32(K) * np.uint32(prog.offset & 0xFFFFFFFF)).view(np.int32)
     return sums.reshape(M, W * 32)[:, :N].astype(np.int64)
@@ -204,7 +229,8 @@ def test_kernel_program_reproduces_the_table(border, candidate):
     sched = candidate[1] if border == "dse" else treduction.get_schedule(2, border)
     inj = tengine.compile_injector(sched)
     prog = tkernel.replay_program(inj.lowered, inj.value_bits)
-    assert prog.n_slots <= 80 and prog.ops.shape[0] == 100 + 101
+    assert prog.n_slots <= 80 and prog.n_ops == 100 + 101 and prog.generic_ops == 0
+    assert prog.ops.shape == (prog.n_ops + prog.n_runs, 2) and prog.n_runs <= 30
     ia, ib = _idx((3, 5), 11), _idx((5, 70), 12)
     table = (lut_from_schedule(candidate[0]) if border == "dse"
              else jlut.build_int8_lut(border)).astype(np.int64)

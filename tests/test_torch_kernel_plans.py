@@ -1,0 +1,198 @@
+"""The host-side plans of two CUDA kernels, on the CPU.
+
+The circuit-replay kernel compiles ``CELL_PAIRS``, the (sum, carry) truth
+tables of the port's cells, as LOP3 immediates, and takes a program of runs
+whose cells share one pair; a cell whose pair is outside that list runs in
+the kernel's slow minterm form (``ReplayProgram.generic_ops``).  The list
+must hold every pair the cells can produce, so that no schedule built from
+them takes the slow form; PP gates run branch-free on their own bytes.  The
+low-rank kernel's grid must fill the card at the rank-8 gemma-2b path's
+shapes while its K chunks, and so its summation order, depend on K alone.
+The kernels themselves run only on a GPU (tests/test_torch_kernels_cuda.py).
+"""
+import itertools
+import math
+
+import numpy as np
+import pytest
+
+from repro_torch.core import engine, reduction
+from repro_torch.core.cells import CELLS
+from repro_torch.kernels.amr_matmul import kernel as mkernel
+from repro_torch.kernels.inject_replay import kernel as rkernel
+
+BORDERS = [None] + list(range(21))
+H100_SMS = 132
+# the dense (M, K, N) of the rank-8 gemma-2b path: decode over 2 slots and a
+# 16-token prefill at d_model 2048, d_ff 16384, 1 KV head and 8 query heads of 256
+PATH_SHAPES = [(m, k, n) for m in (2, 16)
+               for k, n in ((2048, 16384), (16384, 2048), (2048, 256), (2048, 2048))]
+
+
+def _program(border):
+    inj = engine.compile_injector(reduction.get_schedule(2, border))
+    return rkernel.replay_program(inj.lowered, inj.value_bits)
+
+
+def _runs(prog):
+    """[(case, op records)] of a program."""
+    out, i = [], 0
+    while i < prog.ops.shape[0]:
+        head, case = prog.ops[i]
+        assert head >> 24 == 2
+        count = int(head & 0xFFFFFF)
+        out.append((int(case), prog.ops[i + 1:i + 1 + count]))
+        i += 1 + count
+    return out
+
+
+@pytest.mark.parametrize("border", BORDERS)
+def test_every_border_program_runs_on_immediates(border):
+    """No cell of any border's program takes the minterm form: each run's
+    cells carry the bytes of the pair its header names, and the runs are
+    few (the kernel's switch is taken once a run)."""
+    prog = _program(border)
+    assert prog.generic_ops == 0
+    runs = _runs(prog)
+    assert len(runs) == prog.n_runs <= 30
+    assert sum(len(ops) for _, ops in runs) == prog.n_ops == 201
+    for case, ops in runs:
+        for op0, op1 in ops:
+            if op0 >> 24 == 1:
+                assert rkernel.CELL_PAIRS[case] == ((op1 >> 16) & 0xFF, op1 >> 24)
+            else:
+                assert op0 >> 24 == 0
+
+
+def test_cell_pairs_cover_every_cell_order():
+    pairs = set(rkernel.CELL_PAIRS)
+    assert list(rkernel.CELL_PAIRS) == sorted(pairs) and 0 < len(pairs) <= 32
+    for cell in CELLS.values():
+        tables = [np.tile(t, 8 // t.size) for t in (cell.sum_np, cell.carry_np)]
+        for order in itertools.permutations(range(3)):
+            pair = tuple(sum(1 << i for i in range(8)
+                             if t[sum(((i >> (2 - order[p])) & 1) << (2 - p) for p in range(3))])
+                         for t in tables)
+            assert pair in pairs, (cell.name, order, pair)
+
+
+@pytest.mark.parametrize("gate", range(4))
+def test_gates_run_branch_free_on_their_bytes(gate):
+    """A PP gate is x ? f(1, y) : f(0, y), each a select of y by the masks
+    of bits 4x + 3 and 4x of its byte: the kernel's form gives the gate's
+    table for every gate type the lowering emits."""
+    tt = rkernel._gate_byte(engine._GATE_TABLES[gate])
+    for x in (0, 1):
+        for yv in (0, 1):
+            got = ((tt >> (4 * x + 3)) & 1) if yv else ((tt >> (4 * x)) & 1)
+            assert got == engine._GATE_TABLES[gate][2 * x + yv]
+
+
+def test_cell_pairs_reach_the_kernel_build():
+    """Both libraries that include the replay's device code get the list,
+    four 16-bit (sum << 8 | carry) entries a definition."""
+    from repro_torch.kernels.attn_fused import kernel as akernel
+
+    for lib in (rkernel.LIBRARY, akernel.INJECT_LIBRARY):
+        words = dict(f.removeprefix("-DREPLAY_CELL_PAIRS").removesuffix("ULL").split("=")
+                     for f in lib.flags if f.startswith("-DREPLAY_CELL_PAIRS"))
+        assert sorted(words, key=int) == [str(w) for w in range(8)]
+        entries = [(int(words[str(i // 4)], 16) >> (16 * (i % 4))) & 0xFFFF for i in range(32)]
+        built = tuple((e >> 8, e & 0xFF) for e in entries if e)
+        assert built == rkernel.CELL_PAIRS and entries[len(built):] == [0] * (32 - len(built))
+
+
+def test_a_pair_outside_the_list_is_counted_generic(monkeypatch):
+    """A build without one of the served pairs would run its cells in the
+    minterm form: the program says how many cells that is."""
+    fa = (0x96, 0xE8)  # the exact full adder
+    n_fa = sum(op0 >> 24 == 1 and ((op1 >> 16) & 0xFF, op1 >> 24) == fa
+               for _, ops in _runs(_program(8)) for op0, op1 in ops)
+    monkeypatch.setattr(rkernel, "_PAIR_INDEX",
+                        {p: i for i, p in enumerate(rkernel.CELL_PAIRS) if p != fa})
+    prog = _program(8)
+    assert n_fa > 0 and prog.generic_ops == n_fa
+    assert all(case == rkernel.GENERIC for case, ops in _runs(prog)
+               if any(op0 >> 24 == 1 and ((op1 >> 16) & 0xFF, op1 >> 24) == fa
+                      for op0, op1 in ops))
+
+
+@pytest.mark.parametrize("m,k,n", PATH_SHAPES)
+def test_lowrank_grid_fills_the_card(m, k, n):
+    rt, cgb, chunks, tiles = mkernel.lowrank_launch_shape(m, n, k, H100_SMS)
+    assert tiles >= H100_SMS
+    assert tiles == math.ceil(n / (4 * cgb)) * math.ceil(m / rt) * chunks
+    assert rt == (2 if m <= 2 else 8) and cgb in (2, 4, 8, 16)
+
+
+@pytest.mark.parametrize("k", [1, 255, 256, 257, 2048, 2048 + 96, 16384])
+def test_lowrank_chunks_depend_on_k_alone(k):
+    """The summation order is fixed by the chunks: the same for every M, N
+    and card size."""
+    chunks = {mkernel.lowrank_launch_shape(m, n, k, sms)[2]
+              for m in (1, 2, 3, 16, 40) for n in (1, 77, 256, 16384) for sms in (1, 132)}
+    assert chunks == {math.ceil(k / mkernel.LOWRANK_CHUNK)}
+
+
+# (G, M, K, N) of the amr_inject gemma-2b path: the dense sites at decode and
+# prefill, and the grouped attention products
+REPLAY_SHAPES = [(1, m, k, n) for m, k, n in PATH_SHAPES] + [
+    (2, 8, 256, 24), (2, 8, 24, 256), (1, 128, 256, 16), (1, 128, 16, 256)]
+
+
+@pytest.mark.parametrize("per_sm", [(1, 5), (2, 6)])
+@pytest.mark.parametrize("g,m,k,n", REPLAY_SHAPES)
+def test_replay_launch_fills_the_card(g, m, k, n, per_sm):
+    """At most one wave of the blocks the SMs hold (``per_sm``, the
+    kernel's occupancy with ITEMS and with 1 item a thread), at the least K
+    per block that keeps to one wave, or a single k step a block; ITEMS
+    items a thread at the four large dense shapes; every k in exactly one
+    block's chunk."""
+    wpb, rpb, k_chunk, items = rkernel.launch_shape(g, m, n, k, H100_SMS, per_sm)
+    kpb = rkernel.THREADS // (wpb * rpb)
+    assert wpb * rpb * kpb == rkernel.THREADS and items in (1, rkernel.ITEMS)
+    assert (wpb, rpb) == rkernel.replay_block(m, n) and rpb == min(16, 1 << (m - 1).bit_length())
+    splits = math.ceil(k / k_chunk)
+    assert (splits - 1) * k_chunk < k <= splits * k_chunk
+    tiles = g * math.ceil(math.ceil(n / 32) / wpb) * math.ceil(m / rpb)
+    fit = per_sm[0] if items == rkernel.ITEMS else per_sm[1]
+    assert tiles * splits <= max(tiles, fit * H100_SMS)
+    assert tiles * math.ceil(k / max(1, k_chunk - 1)) > fit * H100_SMS or k_chunk <= kpb * items
+    if k * n >= 2048 * 16384:
+        assert items == rkernel.ITEMS
+
+
+def test_replay_launch_takes_one_item_where_more_do_not_fit():
+    """A program whose wire slots leave no room for ITEMS items a thread
+    still runs, with 1; one that fits no block at all is refused."""
+    assert rkernel.launch_shape(1, 2, 16384, 2048, H100_SMS, (0, 3))[3] == 1
+    with pytest.raises(ValueError, match="fits"):
+        rkernel.launch_shape(1, 2, 16384, 2048, H100_SMS, (0, 0))
+
+
+def _all_kernels():
+    from repro_torch.kernels.amr_matmul import kernel as amr
+    from repro_torch.kernels.attn_fused import kernel as attn
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+
+    return amr.KERNELS + rkernel.KERNELS + ssd.KERNELS + attn.KERNELS
+
+
+@pytest.mark.parametrize("kern", _all_kernels(), ids=lambda k: k.name)
+def test_bindings_match_the_c_signatures(kern):
+    """Each binding's ctypes argument types are the exported C function's
+    parameters, in order (a mismatch shows on the card only as a refused
+    call or a cut pointer)."""
+    import ctypes
+    import re
+
+    text = kern.library.source.read_text()
+    match = re.search(rf"\bint {kern.symbol}\(([^)]*)\)\s*{{", text)
+    assert match, f"{kern.symbol} not found in {kern.library.source}"
+    kinds = []
+    for param in match.group(1).split(","):
+        decl = " ".join(param.split())
+        kinds.append(ctypes.c_void_p if "*" in decl else
+                     ctypes.c_longlong if decl.startswith("long long") else
+                     ctypes.c_float if decl.startswith("float") else ctypes.c_int)
+    assert kern.argtypes == kinds

@@ -97,8 +97,15 @@ def test_lut_grouped_kernel_bitwise(cuda, border, g, m, k, n):
     assert torch.equal(got, want)
 
 
+# the rank-8 gemma-2b path's dense shapes, and ragged ones: M of 1, 3, 17; N
+# off the column tiles and the 4-byte loads; K off the 256-chunks
+LOWRANK_SHAPES = [(2, 2048, 256), (5, 1500, 100), (16, 512, 64), (2, 2048, 16384),
+                  (2, 16384, 2048), (16, 2048, 2048), (16, 2048, 256), (1, 2048 + 96, 2048),
+                  (3, 100, 77), (17, 2048 + 96, 300), (1, 1, 1), (3, 257, 4098)]
+
+
 @pytest.mark.parametrize("rank", [1, 8, 16])
-@pytest.mark.parametrize("m,k,n", [(2, 2048, 256), (5, 1500, 100), (16, 512, 64)])
+@pytest.mark.parametrize("m,k,n", LOWRANK_SHAPES)
 def test_lowrank_kernel_close(cuda, rank, m, k, n):
     a, b = _int8((m, k), 4, cuda), _int8((k, n), 5, cuda)
     u, v = lut.factor_tensors(8, rank, cuda)
@@ -111,11 +118,16 @@ def test_lowrank_kernel_close(cuda, rank, m, k, n):
     assert float((got - want).abs().max()) <= 1e-5 * float(scale)
 
 
-def test_lowrank_kernel_row_independent(cuda):
-    a, b = _int8((16, 3000), 6, cuda), _int8((3000, 200), 7, cuda)
+@pytest.mark.parametrize("k,n", [(3000, 200), (2048, 16384), (16384, 2048)])
+def test_lowrank_kernel_row_independent(cuda, k, n):
+    """Each row of an M = 16 call, bit for bit the same row alone (M = 1, 2
+    rows a thread) and in other batches (M = 2, 3)."""
+    a, b = _int8((16, k), 6, cuda), _int8((k, n), 7, cuda)
     u, v = lut.factor_tensors(8, 8, cuda)
     full = kernel.amr_matmul_int8(a, b, u, v)
-    for rows in (slice(0, 1), slice(3, 5), slice(0, 16)):
+    for i in range(16):
+        assert torch.equal(kernel.amr_matmul_int8(a[i:i + 1].contiguous(), b, u, v), full[i:i + 1])
+    for rows in (slice(3, 5), slice(0, 3), slice(0, 16)):
         assert torch.equal(kernel.amr_matmul_int8(a[rows].contiguous(), b, u, v), full[rows])
 
 
@@ -135,12 +147,18 @@ def _idx(shape, seed, device):
     return torch.randint(0, 256, shape, generator=g, device=device, dtype=torch.int32)
 
 
-@pytest.mark.parametrize("border", [8, 14])
-@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (2, 2048, 256), (3, 100, 77), (16, 2048, 300),
-                                   (40, 1000, 513)])
+# dense shapes of the amr_inject path and ragged ones (M 1, 3; N 24, 70; K 5, 2048 + 7)
+REPLAY_SHAPES = [(1, 1, 1), (2, 2048, 256), (3, 100, 77), (16, 2048, 300), (40, 1000, 513),
+                 (2, 2048, 16384), (16, 16384, 2048), (1, 5, 24), (3, 2048 + 7, 70),
+                 (1, 2048 + 7, 24), (3, 5, 70)]
+
+
+@pytest.mark.parametrize("border", [6, 8, 14])
+@pytest.mark.parametrize("m,k,n", REPLAY_SHAPES)
 def test_replay_kernel_bitwise(cuda, border, m, k, n):
     """The replay kernel against its plain version and against the gather
-    kernel on the same schedule's table (the same products)."""
+    kernel on the same schedule's table (the same products); border 6 is the
+    schedule phase 4 of chip_smoke.py registers as a DSE candidate."""
     inj = engine.get_injector(2, border)
     ia, ib = _idx((1, m, k), 0, cuda), _idx((k, n), 1, cuda)
     before = rkernel.REPLAY.launches
@@ -154,26 +172,75 @@ def test_replay_kernel_bitwise(cuda, border, m, k, n):
     assert torch.equal(got[0], lut_out)
 
 
+@pytest.mark.parametrize("border", [6, 8, 14])
 @pytest.mark.parametrize("g,m,k,n", [(2, 8, 256, 24), (2, 8, 24, 256), (1, 128, 256, 16),
-                                     (5, 3, 70, 33)])
-def test_replay_kernel_grouped_bitwise(cuda, g, m, k, n):
-    inj = engine.get_injector(2, 8)
+                                     (5, 3, 70, 33), (3, 1, 5, 70), (2, 3, 2048 + 7, 24)])
+def test_replay_kernel_grouped_bitwise(cuda, border, g, m, k, n):
+    inj = engine.get_injector(2, border)
     ia, ib = _idx((g, m, k), 2, cuda), _idx((g, k, n), 3, cuda)
+    got = rkernel.inject_replay_int32(inj, ia, ib)
+    want = rref.replay_matmul_ref(inj, ia, ib, max_pairs=1 << 22)
+    lut_out = kernel.amr_matmul_int8_lut_grouped((ia - 128).to(torch.int8),
+                                                 (ib - 128).to(torch.int8),
+                                                 ops.kernel_table(border, cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, lut_out)
+
+
+@pytest.mark.parametrize("g,m,k,n", [(1, 16, 2048, 2048), (1, 2, 2048, 16384), (1, 3, 5, 70),
+                                     (2, 1, 2048 + 7, 24)])
+def test_replay_kernel_exact_schedule_is_the_integer_product(cuda, g, m, k, n):
+    """border=None replays the exact multiplier: the sums equal the integer
+    matmul, computed in float64 (exact below 2**53)."""
+    inj = engine.compile_injector(reduction.get_schedule(2, None))
+    ia, ib = _idx((g, m, k), 4, cuda), _idx((g, k, n), 5, cuda)
+    got = rkernel.inject_replay_int32(inj, ia, ib if g > 1 else ib[0])
+    want = (ia - 128).double() @ (ib - 128).double()
+    torch.cuda.synchronize()
+    assert torch.equal(got.double(), want)
+
+
+@pytest.fixture
+def minterm_programs(monkeypatch):
+    """Replay programs lowered as for a build without the exact full
+    adder's (sum, carry) pair: its cells run in kGeneric runs, on the
+    minterm form of their own truth bytes (the served programs never take
+    that form)."""
+    fa = (0x96, 0xE8)
+    monkeypatch.setattr(rkernel, "_PAIR_INDEX",
+                        {p: i for i, p in enumerate(rkernel.CELL_PAIRS) if p != fa})
+    rkernel.program_tensors.cache_clear()
+    rkernel.launch_plan.cache_clear()
+    yield
+    monkeypatch.undo()
+    rkernel.program_tensors.cache_clear()
+    rkernel.launch_plan.cache_clear()
+
+
+@pytest.mark.parametrize("g,m,k,n,items", [(1, 2, 2048, 2048, rkernel.ITEMS),
+                                           (2, 8, 256, 24, 1)])
+def test_replay_kernel_minterm_form_bitwise(cuda, minterm_programs, g, m, k, n, items):
+    """Cells outside the immediate list give the same integers, with
+    kItems items a thread (dense) and with 1 (grouped)."""
+    inj = engine.get_injector(2, 8)
+    ia, ib = _idx((g, m, k), 6, cuda), _idx((g, k, n) if g > 1 else (k, n), 7, cuda)
+    assert rkernel.program_tensors(inj, ia.device)[0].generic_ops > 0
+    assert rkernel.launch_plan(inj, ia.device, g, m, n, k, g > 1)[1][-1] == items
     got = rkernel.inject_replay_int32(inj, ia, ib)
     want = rref.replay_matmul_ref(inj, ia, ib, max_pairs=1 << 22)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
-def test_replay_kernel_exact_schedule_is_the_integer_product(cuda):
-    """border=None replays the exact multiplier: the sums equal the integer
-    matmul, computed in float64 (exact below 2**53)."""
-    inj = engine.compile_injector(reduction.get_schedule(2, None))
-    ia, ib = _idx((1, 16, 2048), 4, cuda), _idx((2048, 2048), 5, cuda)
-    got = rkernel.inject_replay_int32(inj, ia, ib)
-    want = (ia[0] - 128).double() @ (ib - 128).double()
+def test_attn_fused_inject_kernel_minterm_form_bitwise(cuda, minterm_programs):
+    inj = engine.get_injector(2, 8)
+    assert rkernel.program_tensors(inj, cuda)[0].generic_ops > 0
+    args = _attn_operands(2, 8, 256, 24, 256, 1, cuda, method="inject")
+    got = akernel.attn_fused_inject(inj, *args, scale=16.0)
+    want = aref.attn_fused_inject_ref(inj, *args, 16.0, max_pairs=1 << 24)
     torch.cuda.synchronize()
-    assert torch.equal(got[0].double(), want)
+    assert torch.equal(got, want)
 
 
 def test_replay_wrapper_rejects_what_the_kernel_does_not_take(cuda):

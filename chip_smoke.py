@@ -9,33 +9,39 @@ Phases (any failure raises, and the run exits non-zero):
    for sm_90a (one nvcc per source, in parallel); print the build
    seconds and the card's name, power limit and maximum SM clock;
 2. kernels — each kernel against its plain PyTorch version on the card at
-   the served paths' shapes: the integer gather kernels bit for bit at
-   border 8 (int16 table) and border 14 (int32 table, products beyond
-   int16), the low-rank kernel within 1e-5 * max_mn sum_k (|a b| +
-   sum_r |u v|) of its plain version and within K * sigma_{r+1} (plus that
-   slack) of the bit-exact table sums, the circuit-replay kernel bit for
-   bit against its plain version and against the gather kernel on the same
-   operands at border 8 and 14 (and, at the decode shapes, on the border-6
-   schedule), and against the float64 integer product on the exact
-   schedule (border None), every replay program on the build's LOP3
-   immediates alone (``generic_ops`` 0, printed); time kernel, plain
-   version and, for the low-rank kernel, one ``torch.matmul`` on the
-   prebuilt augmented operands (the yardstick), both also as device time
-   under ``torch.profiler`` (``device_ms``: at N = 256 the wrapper's host
-   time holds the event times); the SSD chunked-scan kernel within
-   ``ssd_scan.ref.ssd_error_bound`` of its plain version, per output, in
-   full and split mode, at the mamba2-370m prefill shape (S = 16 in a
-   256-row chunk) and at S = 1024 (4 chunks) with the model's dt, and at
-   S = 1024 with dt scaled so that the state carried from chunk to chunk
-   exceeds the bound a hundredfold (the model's dt decays it to 0 within a
-   chunk, where no check can see it);
+   the served paths' shapes: the flat and grouped gather kernels at every
+   rank-0 shape of gemma-2b and mamba2-370m (dense sites, attn.qk /
+   attn.pv, ssm.scan; ``gather_shapes``) bit for bit at border 8 (int16
+   table) and border 14 (int32 table, products beyond int16), one launch a
+   call, with the profiler's device time (``device_ms``), the launch plan
+   and, at border 8, the device time of the same plan on the other table
+   route (staged in shared memory or read through L1); the low-rank kernel
+   within 1e-5 * max_mn sum_k (|a b| + sum_r |u v|) of its plain version
+   and within K * sigma_{r+1} (plus that slack) of the bit-exact table
+   sums, the circuit-replay kernel bit for bit against its plain version
+   and against the gather kernel on the same operands at border 8 and 14
+   (and, at the decode shapes, on the border-6 schedule), and against the
+   float64 integer product on the exact schedule (border None), every
+   replay program on the build's LOP3 immediates alone (``generic_ops`` 0,
+   printed); time kernel, plain version and, for the low-rank kernel, one
+   ``torch.matmul`` on the prebuilt augmented operands (the yardstick),
+   both also as device time under ``torch.profiler`` (``device_ms``: at N
+   = 256 the wrapper's host time holds the event times); the SSD
+   chunked-scan kernel within ``ssd_scan.ref.ssd_error_bound`` of its
+   plain version, per output, in full and split mode, at the mamba2-370m
+   prefill shape (S = 16 in a 256-row chunk) and at S = 1024 (4 chunks)
+   with the model's dt, and at S = 1024 with dt scaled so that the state
+   carried from chunk to chunk exceeds the bound a hundredfold (the
+   model's dt decays it to 0 within a chunk, where no check can see it);
 2b. A/B, with ``--parent`` (a tree of the parent commit, for example
-   ``git archive`` unpacked under ``build/``): the low-rank kernel, the
-   replay kernel (border 8) and the fused attention inject kernel at the
-   gemma-2b path's shapes, parent, change, change, parent, each run a
-   process of its own that builds its tree's kernels; where a call takes
-   less than 0.2 ms, its event time over 200 calls, its device time and
-   its host time (the wrapper's checks, plan and launch) side by side;
+   ``git archive`` unpacked under ``build/``): the gather kernels (border
+   8) at the gemma-2b and mamba2-370m rank-0 paths' shapes, the low-rank
+   kernel, the replay kernel (border 8) and the fused attention inject
+   kernel at the gemma-2b path's shapes, parent, change, change, parent,
+   each run a process of its own that builds its tree's kernels: the event
+   time (over 200 calls where a call takes less than 0.2 ms, with the host
+   time beside it: the wrapper's checks, plan and launch) and the device
+   time, side by side;
 3. reference — reduced gemma-2b in float32 on the card (kernels) and on
    the CPU (plain versions), same weights, under amr_kernel rank 0 and 8
    and amr_inject, and reduced mamba2-370m under exact (SSD kernel in full
@@ -73,12 +79,14 @@ Phases (any failure raises, and the run exits non-zero):
    the replay kernel and the SSD kernel, the SSD kernel 48 times per
    prefill (once per layer) and never in decode, the fused attention
    kernels never;
-6. batched vs solo — request 0 served alone (1 slot) at rank 0 and under
-   amr_inject gives the same tokens and the same logits, bit for bit, as
-   in the batched run, for both models;
+6. batched vs solo — request 0 served alone (1 slot) gives the same tokens
+   and the same logits, bit for bit, as in the batched run: gemma-2b at
+   rank 0, rank 8 and under amr_inject, mamba2-370m at rank 0 and under
+   amr_inject;
 7. profile — one more run of 2 requests at rank 0, at rank 8 and under
    amr_inject for gemma-2b, and at rank 0 for mamba2-370m, under
-   ``torch.profiler``: device time by kernel and the device's idle share.
+   ``torch.profiler``: device time by kernel and by kernel family (every
+   template instance of a hand kernel), and the device's idle share.
 
 Bounds: the larger of the bytes over 3.35 TB/s and the operations over the
 peak rate of their type: float32 67 T/s (the H100 SXM data sheet, an FMA
@@ -178,15 +186,17 @@ def device_ms(fn, arg_sets, reps: int) -> float:
 
     fn(*arg_sets[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return us / reps / 1e3
+    for _ in range(3):  # the profiler now and then records no kernel of a window
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(*arg_sets[i % len(arg_sets)])
+            torch.cuda.synchronize()
+        us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+        log("[profile] no device time recorded in a window; profiling it again")
+    raise AssertionError("the profiler recorded no device time in three windows")
 
 
 def host_ms(fn, arg_sets, reps: int) -> float:
@@ -207,11 +217,12 @@ def host_ms(fn, arg_sets, reps: int) -> float:
 
 
 def call_times(fn, arg_sets, reps: int) -> dict:
-    """``ms`` by CUDA events over ``reps`` calls; below 0.2 ms, where the
-    host may hold it, over 200 calls, with ``device_ms`` and ``host_ms``."""
+    """``ms`` by CUDA events over ``reps`` calls and ``device_ms``; below 0.2
+    ms, where the host may hold the event time, ``ms`` over 200 calls and
+    ``host_ms`` beside them."""
     ms = time_ms(fn, arg_sets, reps)
     if ms >= 0.2:
-        return dict(ms=ms)
+        return dict(ms=ms, device_ms=device_ms(fn, arg_sets, reps))
     return dict(ms=time_ms(fn, arg_sets, 200), device_ms=device_ms(fn, arg_sets, 50),
                 host_ms=host_ms(fn, arg_sets, 200))
 
@@ -280,63 +291,44 @@ def path_shapes(cfg) -> tuple[list, list, dict]:
     return [SLOTS, PROMPT_LEN], dense_kn, grouped
 
 
+def gather_shapes(cfg, mamba_cfg) -> list[tuple]:
+    """(model, site, G, M, K, N, grouped) of the gather kernels on the rank-0
+    serve paths: gemma-2b's dense sites and attn.qk / attn.pv, then
+    mamba2-370m's dense sites (wz/wx, wb/wc, wdt, out_proj) and its
+    ssm.scan readout, at decode over the slots (one row a slot and head)
+    and in a prefill of one prompt (one chunk of rows, those past the
+    prompt zero)."""
+    from repro_torch.models.ssm import ssm_dims
+
+    dense_m, dense_kn, grouped = path_shapes(cfg)
+    out = [("gemma-2b", "dense", 1, m, k, n, False) for m in dense_m for k, n in dense_kn]
+    out += [("gemma-2b", site, *shape, True) for site, shape in grouped.items()]
+    dims = ssm_dims(mamba_cfg.d_model, mamba_cfg.ssm)
+    d, di, H = mamba_cfg.d_model, dims["d_inner"], dims["n_heads"]
+    kn = [(d, di), (d, dims["d_bc"]), (d, H), (di, d)]
+    out += [("mamba2-370m", "dense", 1, m, k, n, False) for m in dense_m for k, n in kn]
+    N, P = mamba_cfg.ssm.d_state, mamba_cfg.ssm.head_dim
+    out += [("mamba2-370m", "decode ssm.scan", SLOTS * H, 1, N, P, True),
+            ("mamba2-370m", "prefill ssm.scan", H, mamba_cfg.ssm.chunk, N, P, True)]
+    return out
+
+
 def phase_kernels(device, cfg, mamba_cfg) -> dict:
     """Every kernel against its plain version at the main path's shapes."""
     import torch
 
     from repro_torch.core import lut
-    from repro_torch.kernels.amr_matmul import kernel, ops, ref
+    from repro_torch.kernels.amr_matmul import kernel, ref
 
     gen = torch.Generator(device=device).manual_seed(0)
-    rows: dict[str, list[dict]] = {"lut": [], "grouped": [], "lowrank": [], "replay": [],
-                                   "ssd": []}
+    rows: dict[str, list[dict]] = {"lowrank": [], "replay": [], "ssd": []}
     dense_m, dense_kn, grouped = path_shapes(cfg)
     int_rate = int_ops_per_s(device)
     log(f"[kernel] integer rate {int_rate / 1e12:.2f} T/s, float32 rate "
         f"{PEAK_FLOAT_OPS_PER_S / 1e12:.0f} T/s, memory {PEAK_BYTES_PER_S / 1e12:.2f} TB/s")
 
-    # full-LUT gather kernel: dense sites at rank 0
-    for border in (8, 14):
-        table = ops.kernel_table(border, device)
-        table32 = lut.table_tensor(border, device)
-        for m in dense_m:
-            for k, n in dense_kn:
-                a = _int8((m, k), gen, device)
-                bs = [_int8((k, n), gen, device) for _ in range(min(copies(k * n), 64))]
-                got = kernel.amr_matmul_int8_lut(a, bs[0], table)
-                want = ref.lut_matmul_ref(a, bs[0], table32)
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    raise AssertionError(f"LUT kernel differs from plain at border {border}, "
-                                         f"{(m, k, n)}: {(got - want).abs().max().item()}")
-                nbytes = m * k + k * n + table.numel() * table.element_size() + 4 * m * n
-                b_ms, b_by = bound(nbytes, 2 * m * n * k, int_rate)
-                args = [(a, b, table) for b in bs]
-                rows["lut"].append(dict(
-                    border=border, shape=(m, k, n), table=str(table.dtype).split(".")[-1],
-                    max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                    ms=time_ms(kernel.amr_matmul_int8_lut, args, 20),
-                    plain_ms=time_ms(ref.lut_matmul_ref, [(a, bs[0], table32)], 2)))
-
-    # grouped gather kernel: attn.qk / attn.pv at rank 0
-    for border in (8, 14):
-        table = ops.kernel_table(border, device)
-        table32 = lut.table_tensor(border, device)
-        for site, (g, m, k, n) in grouped.items():
-            a, b = _int8((g, m, k), gen, device), _int8((g, k, n), gen, device)
-            got = kernel.amr_matmul_int8_lut_grouped(a, b, table)
-            want = ref.lut_matmul_ref(a, b, table32)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"grouped kernel differs from plain at border {border}, "
-                                     f"{site} {(g, m, k, n)}")
-            nbytes = g * (m * k + k * n + 4 * m * n) + table.numel() * table.element_size()
-            b_ms, b_by = bound(nbytes, 2 * g * m * n * k, int_rate)
-            rows["grouped"].append(dict(
-                border=border, site=site, shape=(g, m, k, n), max_abs_err=0.0, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
-                ms=time_ms(kernel.amr_matmul_int8_lut_grouped, [(a, b, table)], 50),
-                plain_ms=time_ms(ref.lut_matmul_ref, [(a, b, table32)], 10)))
+    # the gather kernels: dense sites and grouped products at rank 0, both models
+    rows = {**gather_kernel_rows(device, cfg, mamba_cfg, gen, int_rate), **rows}
 
     # low-rank kernel: dense sites at rank 8
     u, v = lut.factor_tensors(BORDER, RANK, device)
@@ -381,6 +373,68 @@ def phase_kernels(device, cfg, mamba_cfg) -> dict:
     for name, rs in rows.items():
         for r in rs:
             log(f"[kernel] {name} " + json.dumps(r))
+    return rows
+
+
+def gather_kernel_rows(device, cfg, mamba_cfg, gen, int_rate) -> dict:
+    """The flat and grouped gather kernels at every shape of
+    ``gather_shapes``, at border 8 (int16 table) and 14 (int32): bit for bit
+    against the plain version, one launch a call; event ms (operand copies
+    past L2), device ms under the profiler, the plain version's ms, the
+    launch plan, and at border 8 the device ms of the same plan on the
+    other table route (staged or through L1), which ``lut_launch_plan``
+    chose against."""
+    import torch
+
+    from repro_torch.core import lut
+    from repro_torch.kernels.amr_matmul import kernel, ops, ref
+
+    rows: dict[str, list[dict]] = {"lut": [], "grouped": []}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for border in (8, 14):
+        table = ops.kernel_table(border, device)
+        table32 = lut.table_tensor(border, device)
+        int16 = table.dtype == torch.int16
+        for model, site, g, m, k, n, grouped_b in gather_shapes(cfg, mamba_cfg):
+            lead = (g,) if grouped_b else ()
+            fn = kernel.amr_matmul_int8_lut_grouped if grouped_b else kernel.amr_matmul_int8_lut
+            a = _int8((*lead, m, k), gen, device)
+            bs = [_int8((*lead, k, n), gen, device)
+                  for _ in range(min(copies(g * k * n), 64))]
+            kern = kernel.LUT_GROUPED if grouped_b else kernel.LUT
+            before = kern.launches
+            got = fn(a, bs[0], table)
+            want = ref.lut_matmul_ref(a, bs[0], table32)
+            torch.cuda.synchronize()
+            if kern.launches != before + 1:
+                raise AssertionError(f"{kern.name}: {kern.launches - before} launches in a call")
+            if not torch.equal(got, want):
+                raise AssertionError(f"{kern.name} differs from plain at border {border}, "
+                                     f"{model} {site} {(g, m, k, n)}: "
+                                     f"{(got - want).abs().max().item()}")
+            plan = kernel.lut_launch_plan(g, m, n, k, sms, int16)
+            nbytes = g * (m * k + k * n + 4 * m * n) + table.numel() * table.element_size()
+            b_ms, b_by = bound(nbytes, 2 * g * m * n * k, int_rate)
+            args = [(a, b, table) for b in bs]
+            row = dict(model=model, site=site, border=border,
+                       shape=(g, m, k, n) if grouped_b else (m, k, n),
+                       table=str(table.dtype).split(".")[-1],
+                       route="staged" if plan.staged else "global",
+                       plan=dict(rt=plan.rt, cg=plan.cg, k_chunk=plan.k_chunk,
+                                 splits=plan.splits, tiles=plan.tiles),
+                       max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       ms=time_ms(fn, args, 20), device_ms=device_ms(fn, args, 20),
+                       plain_ms=time_ms(ref.lut_matmul_ref, [(a, bs[0], table32)], 2))
+            if int16:
+                other = plan._replace(staged=not plan.staged)
+                flipped = kernel.lut_matmul_with_plan(a, bs[0], table, other)
+                torch.cuda.synchronize()
+                if not torch.equal(flipped, want):
+                    raise AssertionError(f"{kern.name} on the other route differs from plain "
+                                         f"at {model} {site} {(g, m, k, n)}")
+                row["other_route_device_ms"] = device_ms(
+                    lambda *x: kernel.lut_matmul_with_plan(*x, other), args, 20)
+            rows["grouped" if grouped_b else "lut"].append(row)
     return rows
 
 
@@ -549,23 +603,34 @@ def ssd_kernel_rows(device, mcfg) -> list[dict]:
 
 
 def time_kernels() -> dict:
-    """Times (``call_times``) of the low-rank kernel, the replay kernel
-    (border 8) and the fused attention inject kernel (border 8) at the
-    gemma-2b path's shapes, from whichever ``repro_torch`` is first on
-    sys.path: the same calls with the same seeded operands in this tree and
-    in a parent's."""
+    """Times (``call_times``) of the gather kernels (border 8, int16 table)
+    at the gemma-2b and mamba2-370m rank-0 paths' shapes, and of the
+    low-rank kernel, the replay kernel (border 8) and the fused attention
+    inject kernel (border 8) at the gemma-2b path's shapes, from whichever
+    ``repro_torch`` is first on sys.path: the same calls with the same
+    seeded operands in this tree and in a parent's."""
     import torch
 
-    from repro_torch.configs import gemma_2b
+    from repro_torch.configs import gemma_2b, mamba2_370m
     from repro_torch.core import engine, lut
-    from repro_torch.kernels.amr_matmul import kernel
+    from repro_torch.kernels.amr_matmul import kernel, ops
     from repro_torch.kernels.attn_fused import kernel as akernel
     from repro_torch.kernels.inject_replay import kernel as rkernel
 
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(5)
     dense_m, dense_kn, grouped = path_shapes(gemma_2b.CONFIG)
-    out: dict[str, dict] = {"lowrank": {}, "replay": {}, "attn_fused_inject": {}}
+    out: dict[str, dict] = {"lut": {}, "grouped": {}, "lowrank": {}, "replay": {},
+                            "attn_fused_inject": {}}
+    table = ops.kernel_table(BORDER, device)
+    for model, site, g, m, k, n, grouped_b in gather_shapes(gemma_2b.CONFIG, mamba2_370m.CONFIG):
+        lead = (g,) if grouped_b else ()
+        a = _int8((*lead, m, k), gen, device)
+        args = [(a, _int8((*lead, k, n), gen, device), table)
+                for _ in range(min(copies(g * k * n), 64))]
+        fn = kernel.amr_matmul_int8_lut_grouped if grouped_b else kernel.amr_matmul_int8_lut
+        key = f"{model} {(g, m, k, n) if grouped_b else (m, k, n)}"
+        out["grouped" if grouped_b else "lut"][key] = call_times(fn, args, 20)
     u, v = lut.factor_tensors(BORDER, RANK, device)
     for m in dense_m:
         for k, n in dense_kn:
@@ -602,11 +667,11 @@ def time_kernels() -> dict:
 
 
 def phase_ab(parent: Path) -> dict:
-    """The low-rank, replay and fused inject kernels of this tree against a
-    parent tree's on one card: parent, change, change, parent, each a
+    """The gather, low-rank, replay and fused inject kernels of this tree
+    against a parent tree's on one card: parent, change, change, parent, each a
     process of its own that builds its tree's kernels (``--time-kernels``).
-    Prints each shape's four times of each kind (event, and below 0.2 ms
-    device and host) and the parent / change ratio of the means."""
+    Prints each shape's four times of each kind (event, device, and below
+    0.2 ms host) and the parent / change ratio of the means."""
     runs = []
     for label, src in (("parent", parent / "src"), ("change", ROOT / "src"),
                        ("change", ROOT / "src"), ("parent", parent / "src")):
@@ -619,7 +684,7 @@ def phase_ab(parent: Path) -> dict:
         runs.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
         log(f"[ab] {label} run from {src} in {time.perf_counter() - t0:.1f}s")
     table = {}
-    for kind in ("lowrank", "replay", "attn_fused_inject"):
+    for kind in ("lut", "grouped", "lowrank", "replay", "attn_fused_inject"):
         for key, times in runs[1][1][kind].items():
             for what in times:
                 parent_ms = [r[kind].get(key, {}).get(what) for lab, r in runs if lab == "parent"]
@@ -1007,7 +1072,7 @@ def phase_serve(device, card: str, gemma, gemma_params, mamba) -> dict:
         "amr_inject": (inject, INJECT_REQUESTS, INJECT_GEN, {"inject_replay"}),
     }
     launches = {"gemma-2b": serve_model(device, card, gemma, gemma_params, gemma_runs,
-                                        ("rank 0", "amr_inject"), tuple(gemma_runs), {})}
+                                        tuple(gemma_runs), tuple(gemma_runs), {})}
     gemma_params.clear()  # free gemma-2b's weights: mamba2-370m's peak memory is its own
     mamba_runs = {
         "rank 0": (rank0, REQUESTS, GEN, gathers | {"ssd_scan"}),
@@ -1017,6 +1082,14 @@ def phase_serve(device, card: str, gemma, gemma_params, mamba) -> dict:
                                           mamba_runs, ("rank 0", "amr_inject"), ("rank 0",),
                                           {"ssd_scan": mamba.n_layers})
     return launches
+
+
+# kernel families of the profile, by a part of their names: every template
+# instance of a hand kernel, and the memsets of all ops (a parent tree's
+# gather wrappers zero-filled their outputs with one a call)
+PROFILE_FAMILIES = {"gather kernels": "amr_lut", "low-rank kernel": "amr_lowrank",
+                    "replay kernel": "inject_replay", "SSD scan": "ssd_scan",
+                    "memsets": "Memset"}
 
 
 def profile_serve(device, card: str, cfg, params, prompts, gen: int) -> None:
@@ -1051,6 +1124,11 @@ def profile_serve(device, card: str, cfg, params, prompts, gen: int) -> None:
         f"{eng.steps_done} decode steps, {wall_us / 1e3:.2f} ms wall, "
         f"device busy {busy_us / 1e3:.2f} ms "
         f"(idle share {1 - busy_us / wall_us:.3f}), hand kernels {ours / 1e3:.2f} ms")
+    for family, tag in PROFILE_FAMILIES.items():
+        mine = [r for r in rows if tag in r[2]]
+        if mine:
+            log(f"[profile]   {family}: {sum(r[0] for r in mine) / 1e3:.3f} ms over "
+                f"{sum(r[1] for r in mine)} launches")
     for i, (dev_us, count, key) in enumerate(rows):
         if i < 12 or "ssd_scan" in key:
             log(f"[profile]   {dev_us / 1e3:9.3f} ms  {count:6d} calls  {key[:100]}")

@@ -10,8 +10,10 @@ reference's order, ``acc.float() * sa * sb``.
   the error against the full table is at most sigma_{r+1} (core/lut.py).
 
 The table a kernel gathers from is the narrowest exact one: int16 when
-every product of the border fits it (128 KB, which stays in an SM's L1),
-int32 otherwise.  The kernels take contiguous operands, so the quantized
+every product of the border fits it (128 KB, which the gather kernels
+stage into each SM's shared memory on large calls and read through L1 on
+small ones), int32 otherwise (256 KB, more than a block's shared memory:
+read through L1).  The kernels take contiguous operands, so the quantized
 operands are made contiguous here (a no-op for the dense sites).
 """
 from __future__ import annotations

@@ -12,6 +12,7 @@ The kernels themselves run only on a GPU (tests/test_torch_kernels_cuda.py).
 """
 import itertools
 import math
+import re
 
 import numpy as np
 import pytest
@@ -132,6 +133,69 @@ def test_lowrank_chunks_depend_on_k_alone(k):
     chunks = {mkernel.lowrank_launch_shape(m, n, k, sms)[2]
               for m in (1, 2, 3, 16, 40) for n in (1, 77, 256, 16384) for sms in (1, 132)}
     assert chunks == {math.ceil(k / mkernel.LOWRANK_CHUNK)}
+
+
+# (G, M, K, N) of the gather kernels on the rank-0 serve paths: the dense
+# sites of gemma-2b (d_model 2048, d_ff 16384, 1 KV head and 8 query heads of
+# 256) and of mamba2-370m (wz/wx, wb/wc, wdt, out_proj) at decode over 1 and
+# 2 slots and in a 16-token prefill; attn.qk / attn.pv at decode over 1 and 2
+# slots and in prefill; ssm.scan at decode over 2 and 1 slots and in prefill
+GATHER_SHAPES = [(1, m, k, n) for m in (1, 2, 16)
+                 for k, n in ((2048, 16384), (16384, 2048), (2048, 256), (2048, 2048),
+                              (1024, 2048), (1024, 128), (1024, 32), (2048, 1024))]
+GATHER_SHAPES += [(2, 8, 256, 24), (2, 8, 24, 256), (1, 8, 256, 24), (1, 8, 24, 256),
+                  (1, 128, 256, 16), (1, 128, 16, 256), (64, 1, 128, 64), (32, 1, 128, 64),
+                  (32, 256, 128, 64)]
+SM90_SMEM_PER_BLOCK = 227 * 1024
+
+
+@pytest.mark.parametrize("int16", [True, False])
+@pytest.mark.parametrize("g,m,k,n", GATHER_SHAPES)
+def test_lut_plan_fills_the_card(g, m, k, n, int16):
+    """At least 124 of the 132 SMs get a tile in the first round; the tiles
+    are the groups x row tiles x column tiles x K splits of the plan."""
+    plan = mkernel.lut_launch_plan(g, m, n, k, H100_SMS, int16)
+    assert plan.tiles >= 124 and mkernel.fills_the_card(plan.tiles, H100_SMS)
+    assert plan.tiles == (g * math.ceil(m / plan.rt) * math.ceil(n / (4 * plan.cg))
+                          * plan.splits)
+    assert plan.rt in mkernel.LUT_ROWS and plan.rt <= 1 << (m - 1).bit_length()
+    assert plan.cg in (4, 8, 16, 32, 64, 128) and mkernel.LUT_THREADS % plan.cg == 0
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 5, 24, 127, 128, 1000, 2047, 2048, 2050, 16384])
+def test_lut_plan_puts_every_k_in_one_split(k):
+    """k_chunk is a multiple of 4 and the splits tile K exactly, for every
+    M, N and group count; the staged A rows fit their buffer."""
+    for g, m, n in ((1, 1, 1), (1, 2, 16384), (1, 16, 256), (1, 17, 77), (64, 1, 64),
+                    (32, 256, 64)):
+        plan = mkernel.lut_launch_plan(g, m, n, k, H100_SMS, True)
+        assert plan.k_chunk % 4 == 0 and plan.k_chunk >= 4
+        assert (plan.splits - 1) * plan.k_chunk < k <= plan.splits * plan.k_chunk
+        assert plan.rt * plan.k_chunk <= mkernel.LUT_A_ENTRIES
+
+
+@pytest.mark.parametrize("int16", [True, False])
+@pytest.mark.parametrize("g,m,k,n", GATHER_SHAPES + [(1, 40, 1000, 513), (1, 16, 16384, 16384)])
+def test_lut_plan_shared_memory_fits(g, m, k, n, int16):
+    """A launch asks for at most the 227 KB a block may use; only the int16
+    table is staged, and it is staged where the call has enough products."""
+    plan = mkernel.lut_launch_plan(g, m, n, k, H100_SMS, int16)
+    assert mkernel.lut_smem_bytes(plan) <= SM90_SMEM_PER_BLOCK
+    assert plan.staged == (int16 and g * m * n * k >= mkernel.LUT_STAGE_MIN_PRODUCTS)
+    widest = plan._replace(rt=16, cg=mkernel.LUT_MAX_CG,
+                           k_chunk=mkernel.LUT_A_ENTRIES // 16, staged=True)
+    assert mkernel.lut_smem_bytes(widest) <= SM90_SMEM_PER_BLOCK
+
+
+def test_lut_constants_match_the_source():
+    """The plan's block size, staged-A capacity, widest block and table size
+    are the CUDA source's."""
+    text = mkernel.LUT_LIBRARY.source.read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", text))
+    assert eval(consts["kThreads"]) == mkernel.LUT_THREADS
+    assert eval(consts["kAEntries"]) == mkernel.LUT_A_ENTRIES
+    assert eval(consts["kMaxCg"]) == mkernel.LUT_MAX_CG
+    assert eval(consts["kTableBytes16"]) == mkernel.LUT_TABLE_BYTES
 
 
 # (G, M, K, N) of the amr_inject gemma-2b path: the dense sites at decode and

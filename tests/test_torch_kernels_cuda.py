@@ -72,29 +72,112 @@ def test_kernels_build(cuda, capsys):
             print(f"\n[build] {name}: {rec.seconds:.1f}s\n{rec.log}")
 
 
+# the gather kernels' path shapes (gemma-2b and mamba2-370m at decode and
+# prefill) and ragged ones: M of 1, 3, 15, 17 about the row tiles; N off the
+# 4 columns a thread and the block's columns; K off 4 and off the K splits
+LUT_SHAPES = [(1, 1, 1), (2, 2048, 256), (3, 100, 77), (16, 2048, 300), (40, 1000, 513),
+              (2, 2048, 16384), (2, 16384, 2048), (2, 2048, 2048), (16, 2048, 16384),
+              (16, 16384, 2048), (16, 2048, 2048), (16, 2048, 256), (1, 2048, 16384),
+              (2, 1024, 2048), (2, 1024, 128), (2, 1024, 32), (2, 2048, 1024),
+              (16, 1024, 2048), (16, 1024, 128), (16, 1024, 32), (16, 2048, 1024),
+              (15, 2050, 1030), (17, 4099, 254), (1, 2047, 4098), (3, 513, 3)]
+LUT_GROUPED_SHAPES = [(2, 8, 256, 24), (2, 8, 24, 256), (1, 128, 256, 16), (5, 3, 70, 33),
+                      (1, 128, 16, 256), (64, 1, 128, 64), (32, 256, 128, 64), (2, 1, 128, 64),
+                      (3, 17, 130, 65), (64, 2, 9, 3)]
+
+
+def _one_kernel_a_call(kern, fn, *args, calls=5):
+    """The result of ``fn(*args)``, checked over ``calls`` calls to count one
+    launch a call on ``kern`` and, under torch.profiler, to run no CUDA
+    kernel but that one (no zero-fill or other launch beside it; the
+    profiler may miss a short kernel's record, so its count is checked to
+    be at most one a call).  A call before them allocates the stream's
+    zeroed counters and accumulator where this shape is the first to need
+    them (once a stream and size)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    before = kern.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        outs = [fn(*args) for _ in range(calls)]
+        torch.cuda.synchronize()
+    assert kern.launches == before + calls
+    device_events = [(ev.key, ev.count) for ev in prof.key_averages()
+                     if ev.device_type == DeviceType.CUDA]
+    assert len(device_events) == 1 and "amr_lut_kernel" in device_events[0][0], device_events
+    assert 1 <= device_events[0][1] <= calls, device_events
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    return outs[0]
+
+
 @pytest.mark.parametrize("border", [8, 14])
-@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (2, 2048, 256), (3, 100, 77), (16, 2048, 300),
-                                   (40, 1000, 513)])
+@pytest.mark.parametrize("m,k,n", LUT_SHAPES)
 def test_lut_kernel_bitwise(cuda, border, m, k, n):
     a, b = _int8((m, k), 0, cuda), _int8((k, n), 1, cuda)
     table = ops.kernel_table(border, cuda)
-    before = kernel.LUT.launches
-    got = kernel.amr_matmul_int8_lut(a, b, table)
-    assert kernel.LUT.launches == before + 1
+    got = _one_kernel_a_call(kernel.LUT, kernel.amr_matmul_int8_lut, a, b, table)
     want = ref.lut_matmul_ref(a, b, lut.table_tensor(border, cuda))
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("border", [8, 14])
-@pytest.mark.parametrize("g,m,k,n", [(2, 8, 256, 24), (2, 8, 24, 256), (1, 128, 256, 16),
-                                     (5, 3, 70, 33)])
+@pytest.mark.parametrize("g,m,k,n", LUT_GROUPED_SHAPES)
 def test_lut_grouped_kernel_bitwise(cuda, border, g, m, k, n):
     a, b = _int8((g, m, k), 2, cuda), _int8((g, k, n), 3, cuda)
-    got = kernel.amr_matmul_int8_lut_grouped(a, b, ops.kernel_table(border, cuda))
+    got = _one_kernel_a_call(kernel.LUT_GROUPED, kernel.amr_matmul_int8_lut_grouped, a, b,
+                             ops.kernel_table(border, cuda))
     want = ref.lut_matmul_ref(a, b, lut.table_tensor(border, cuda))
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _other_plans(g, m, k, n, int16):
+    """Launch plans beside the wrapper's: each row tile, the narrowest, a
+    middle and the widest block, K a tile of 4, 60 and the most the staged
+    A holds (at most 65536 tiles), each on both table routes (int16 only)."""
+    plans = {kernel.lut_launch_plan(g, m, n, k, 132, int16)}
+    for rt in kernel.LUT_ROWS:
+        for cg in (4, 32, kernel.LUT_MAX_CG):
+            for k_chunk in (4, 60, kernel.LUT_A_ENTRIES // rt):
+                k_chunk = min(k_chunk, 4 * -(-k // 4))
+                splits = -(-k // k_chunk)
+                tiles = g * -(-m // rt) * -(-n // (4 * cg)) * splits
+                for staged in {False, int16}:
+                    if tiles <= 1 << 16:
+                        plans.add(kernel.LutPlan(rt, cg, k_chunk, splits, tiles, staged))
+    return sorted(plans)
+
+
+@pytest.mark.parametrize("border", [8, 14])
+@pytest.mark.parametrize("g,m,k,n", [(1, 2, 2048, 256), (1, 17, 300, 77), (3, 5, 1001, 130),
+                                     (1, 16, 2048, 16384)])
+def test_lut_kernel_every_plan_bitwise(cuda, border, g, m, k, n):
+    """The kernel body under plans the wrapper may not pick at this shape:
+    both table routes, every row tile, narrow and wide blocks, fine and
+    coarse K splits; each run one launch, each bit for bit the plain
+    version."""
+    a, b = _int8((g, m, k), 8, cuda), _int8((g, k, n), 9, cuda)
+    table = ops.kernel_table(border, cuda)
+    want = ref.lut_matmul_ref(a, b, lut.table_tensor(border, cuda))
+    for plan in _other_plans(g, m, k, n, table.dtype == torch.int16):
+        got = kernel.lut_matmul_with_plan(a[0] if g == 1 else a, b[0] if g == 1 else b,
+                                          table, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want[0] if g == 1 else want), plan
+
+
+def test_lut_kernel_row_independent(cuda):
+    """Rows 0..1 of an M = 16 call (16-row tiles) are the M = 2 call's (2-row
+    tiles) bit for bit, at a decode and a prefill shape of each route."""
+    for k, n in ((2048, 16384), (2048, 256), (1024, 32)):
+        a, b = _int8((16, k), 10, cuda), _int8((k, n), 11, cuda)
+        for border in (8, 14):
+            table = ops.kernel_table(border, cuda)
+            full = kernel.amr_matmul_int8_lut(a, b, table)
+            assert torch.equal(kernel.amr_matmul_int8_lut(a[:2].contiguous(), b, table), full[:2])
 
 
 # the rank-8 gemma-2b path's dense shapes, and ragged ones: M of 1, 3, 17; N

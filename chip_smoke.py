@@ -29,15 +29,18 @@ Phases (any failure raises, and the run exits non-zero):
    = 256 the wrapper's host time holds the event times); the SSD
    chunked-scan kernel within ``ssd_scan.ref.ssd_error_bound`` of its
    plain version, per output, in full and split mode, at the mamba2-370m
-   prefill shape (S = 16 in a 256-row chunk) and at S = 1024 (4 chunks)
-   with the model's dt, and at S = 1024 with dt scaled so that the state
-   carried from chunk to chunk exceeds the bound a hundredfold (the
-   model's dt decays it to 0 within a chunk, where no check can see it);
+   prefill shape (S = 16 in a 256-row chunk), at S = 1024 (4 chunks) and
+   at S = 2048 (8 chunks) with the model's dt, and at S = 1024 and 2048
+   with dt scaled so that the state carried from chunk to chunk exceeds
+   the bound a hundredfold (the model's dt decays it to 0 within a chunk,
+   where no check can see it), with event and device ms;
 2b. A/B, with ``--parent`` (a tree of the parent commit, for example
    ``git archive`` unpacked under ``build/``): the gather kernels (border
    8) at the gemma-2b and mamba2-370m rank-0 paths' shapes, the low-rank
    kernel, the replay kernel (border 8) and the fused attention inject
-   kernel at the gemma-2b path's shapes, parent, change, change, parent,
+   kernel (served decode and prefill, long decode and prefill) at the
+   gemma-2b path's shapes, and the SSD kernel at S = 16, 1024 and 2048 in split and full
+   mode at mamba2-370m's widths, parent, change, change, parent,
    each run a process of its own that builds its tree's kernels: the event
    time (over 200 calls where a call takes less than 0.2 ms, with the host
    time beside it: the wrapper's checks, plan and launch) and the device
@@ -57,7 +60,10 @@ Phases (any failure raises, and the run exits non-zero):
    over gemma-2b's 8192-token context on seeded operands; at border 8 and
    14 (int16 and int32 tables), inject also on a registered border-6
    schedule (a DSE candidate).  Each kernel equals its plain version bit
-   for bit at three row tiles, and the op is within
+   for bit at three row tiles (the inject kernel also at T slices of one
+   word and of all of T, at the other items count and, where one block
+   takes a whole row tile, through the split join; at border 8 each of
+   these is timed), and the op is within
    ``attn_fused.ref.flip_tolerance`` of the unfused seam composition
    (``fused_attention_reference``, torch.softmax); per case the kernel's,
    the op's, the plain version's and the unfused seam's ms, the bound, the
@@ -130,6 +136,7 @@ L2_BYTES = 50 * 2**20
 BORDER, RANK = 8, 8
 SLOTS, PROMPT_LEN, GEN, REQUESTS = 2, 16, 8, 4
 SSD_LONG = 1024  # the longer SSD shape: 4 chunks of 256
+SSD_CONTEXT = 2048  # the Mamba2 models' training context: 8 chunks, more blocks than SMs
 INJECT_GEN, INJECT_REQUESTS = 4, 2
 CAPACITY = PROMPT_LEN + GEN
 TRANSPOSE_OPS = 5 * 16 * 6  # 32x32 bit transpose: 5 levels x 16 word pairs x 6 ops
@@ -539,37 +546,28 @@ def ssd_kernel_rows(device, mcfg) -> list[dict]:
     """The SSD kernel against its plain version, in full and split mode,
     every output within ``ssd_error_bound`` (the float32 roundings of sums
     and of the cumulative log decay, relative to the same function of |x|,
-    |b|, |c|, per batch, chunk and head).  Inputs: the mamba2-370m prefill
-    shape (one 16-token prompt, bf16 x, b, c as the conv outputs are) and
-    S = 1024 (4 chunks), with dt as the model makes it; and S = 1024 with
-    dt scaled per head so that a chunk decays the state by exp(-0.5) on
+    |b|, |c|, per batch, chunk and head).  Inputs at the mamba2-370m
+    widths (bf16 x, b, c as the conv outputs are): one 16-token prompt (the
+    served prefill), S = 1024 (4 chunks, fewer blocks than SMs) and S =
+    2048 (8 chunks, the Mamba2 models' training context, more blocks than
+    SMs), with dt as the model makes it; and at 1024 and 2048 with dt
+    scaled per head so that a chunk decays the state by exp(-0.5) on
     average.  With the model's dt a chunk's decay underflows to 0, so only
     the scaled inputs show the state carried from chunk to chunk: there the
     carried part of each output (``ssd_carried``) must exceed its bound a
     hundredfold somewhere, so that a kernel that dropped or mis-scaled the
-    carry would fail."""
+    carry would fail.  Each row has the event ms and the device ms."""
     import torch
 
     from repro_torch.kernels.ssd_scan import kernel as skernel
     from repro_torch.kernels.ssd_scan import ref as sref
-    from repro_torch.models.ssm import ssm_dims
 
-    dims = ssm_dims(mcfg.d_model, mcfg.ssm)
-    H, P, N, G, Q = dims["n_heads"], mcfg.ssm.head_dim, mcfg.ssm.d_state, mcfg.ssm.n_groups, \
-        mcfg.ssm.chunk
+    H, P, N, G, Q = ssd_widths(mcfg)
     gen = torch.Generator(device=device).manual_seed(2)
-    a_log = torch.log(torch.linspace(1.0, 16.0, H, device=device))  # a_log at its init
     out = []
-    for S, inputs in ((PROMPT_LEN, "model dt"), (SSD_LONG, "model dt"), (SSD_LONG, "carry")):
-        def normal(*shape):
-            return torch.randn(shape, generator=gen, device=device)
-
-        if inputs == "carry":
-            dt = torch.rand((1, S, H), generator=gen, device=device) / (torch.exp(a_log) * Q)
-        else:
-            dt = torch.nn.functional.softplus(normal(1, S, H))  # softplus of a projection
-        args = (normal(1, S, H, P).bfloat16(), dt, a_log, normal(1, S, G, N).bfloat16(),
-                normal(1, S, G, N).bfloat16())
+    for S, inputs in ((PROMPT_LEN, "model dt"), (SSD_LONG, "model dt"), (SSD_LONG, "carry"),
+                      (SSD_CONTEXT, "model dt"), (SSD_CONTEXT, "carry")):
+        args = ssd_inputs(device, gen, S, H, P, N, G, Q, carry=inputs == "carry")
         for split in (False, True):
             got = skernel.ssd_scan(*args, Q, split=split)
             want = sref.ssd_ref(*args, Q, split=split)
@@ -593,22 +591,57 @@ def ssd_kernel_rows(device, mcfg) -> list[dict]:
                                      f"not visible above the bound ({carry})")
             nbytes = sum(t.numel() * t.element_size() for t in args + tuple(got))
             b_ms, b_by = bound(nbytes, ssd_work(1, S, H, P, N, Q, split), PEAK_FLOAT_OPS_PER_S)
+
+            def kern(*a, split=split):
+                return skernel.ssd_scan(*a, Q, split=split)
+
+            plan = skernel.ssd_launch_plan(1, S, H, P, N, Q, torch.cuda.get_device_properties(
+                device).multi_processor_count)
             out.append(dict(
                 shape=(1, S, H, P, N), inputs=inputs, mode="split" if split else "full",
+                plan=dict(p_block=plan.p_block, blocks=plan.blocks),
                 max_abs_err=err, err_over_bound=ratio, carried_over_bound=carry, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
-                ms=time_ms(lambda *a: skernel.ssd_scan(*a, Q, split=split), [args], 50),
+                bound_by=b_by, library_ms=None, **call_times(kern, [args], 50),
                 plain_ms=time_ms(lambda *a: sref.ssd_ref(*a, Q, split=split), [args], 5)))
     return out
 
 
+def ssd_widths(mcfg) -> tuple[int, int, int, int, int]:
+    """(H, P, N, G, chunk) of a Mamba2 config's SSD scan."""
+    from repro_torch.models.ssm import ssm_dims
+
+    dims = ssm_dims(mcfg.d_model, mcfg.ssm)
+    return (dims["n_heads"], mcfg.ssm.head_dim, mcfg.ssm.d_state, mcfg.ssm.n_groups,
+            mcfg.ssm.chunk)
+
+
+def ssd_inputs(device, gen, S, H, P, N, G, Q, carry=False) -> tuple:
+    """(x, dt, a_log, b, c) of one sequence: bf16 x, b, c; a_log at its
+    init; dt the softplus of a projection, or with ``carry`` scaled per head
+    so that a chunk of Q rows decays the state by exp(-0.5) on average."""
+    import torch
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, device=device))
+    if carry:
+        dt = torch.rand((1, S, H), generator=gen, device=device) / (torch.exp(a_log) * Q)
+    else:
+        dt = torch.nn.functional.softplus(normal(1, S, H))
+    return (normal(1, S, H, P).bfloat16(), dt, a_log, normal(1, S, G, N).bfloat16(),
+            normal(1, S, G, N).bfloat16())
+
+
 def time_kernels() -> dict:
     """Times (``call_times``) of the gather kernels (border 8, int16 table)
-    at the gemma-2b and mamba2-370m rank-0 paths' shapes, and of the
-    low-rank kernel, the replay kernel (border 8) and the fused attention
-    inject kernel (border 8) at the gemma-2b path's shapes, from whichever
-    ``repro_torch`` is first on sys.path: the same calls with the same
-    seeded operands in this tree and in a parent's."""
+    at the gemma-2b and mamba2-370m rank-0 paths' shapes, of the low-rank
+    kernel, the replay kernel (border 8) and the fused attention inject
+    kernel (border 8: served decode and prefill, long decode and prefill)
+    at the gemma-2b path's shapes, and of the SSD scan at mamba2-370m's widths (S
+    = 16, 1024, 2048, split and full), from whichever ``repro_torch`` is
+    first on sys.path: the same calls with the same seeded operands in this
+    tree and in a parent's."""
     import torch
 
     from repro_torch.configs import gemma_2b, mamba2_370m
@@ -620,8 +653,10 @@ def time_kernels() -> dict:
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(5)
     dense_m, dense_kn, grouped = path_shapes(gemma_2b.CONFIG)
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+
     out: dict[str, dict] = {"lut": {}, "grouped": {}, "lowrank": {}, "replay": {},
-                            "attn_fused_inject": {}}
+                            "attn_fused_inject": {}, "ssd": {}}
     table = ops.kernel_table(BORDER, device)
     for model, site, g, m, k, n, grouped_b in gather_shapes(gemma_2b.CONFIG, mamba2_370m.CONFIG):
         lead = (g,) if grouped_b else ()
@@ -649,26 +684,40 @@ def time_kernels() -> dict:
         n_copies = min(copies(4 * k * n * (g if grouped_b else 1)), 16)
         args = [(inj, ia, idx((g, k, n) if grouped_b else (k, n))) for _ in range(n_copies)]
         out["replay"][str((g, m, k, n))] = call_times(rkernel.inject_replay_int32, args, 10)
+    D = P = gemma_2b.CONFIG.head_dim
     for label, (G, M, T) in (("served decode", (SLOTS, 8, CAPACITY)),
-                             ("long decode", (SLOTS, 8, ATTN_CONTEXT))):
-        D = P = gemma_2b.CONFIG.head_dim
-        lens = torch.tensor([T - T // 8, T], device=device)
+                             ("served prefill", (1, 8 * PROMPT_LEN, PROMPT_LEN)),
+                             ("long decode", (SLOTS, 8, ATTN_CONTEXT)),
+                             ("long prefill", (1, 8 * ATTN_LONG_PREFILL["inject"],
+                                               ATTN_LONG_PREFILL["inject"]))):
+        if label.endswith("prefill"):
+            mask = _causal(1, 8, T, device)
+        else:
+            lens = torch.tensor([T - T // 8, T], device=device)
+            mask = (torch.arange(T, device=device) < lens[:, None, None]).int().expand(
+                G, M, T).contiguous()
         args = (_int8((G, M, D), gen, device), _int8((G, D, T), gen, device),
                 _int8((G, T, P), gen, device),
                 torch.rand((G, M, 1), generator=gen, device=device) / 127,
                 torch.rand((G, 1, T), generator=gen, device=device) / 127,
-                torch.rand((G, 1, P), generator=gen, device=device) / 127,
-                (torch.arange(T, device=device) < lens[:, None, None]).int()
-                .expand(G, M, T).contiguous())
-        out["attn_fused_inject"][label] = dict(ms=time_ms(
-            lambda *a: akernel.attn_fused_inject(inj, *a, scale=D ** 0.5), [args],
-            _reps(lambda *a: akernel.attn_fused_inject(inj, *a, scale=D ** 0.5), args)))
+                torch.rand((G, 1, P), generator=gen, device=device) / 127, mask)
+
+        def fused(*a):
+            return akernel.attn_fused_inject(inj, *a, scale=D ** 0.5)
+
+        out["attn_fused_inject"][label] = call_times(fused, [args], _reps(fused, args))
+    H, P, N, G, Q = ssd_widths(mamba2_370m.CONFIG)
+    for S in (PROMPT_LEN, SSD_LONG, SSD_CONTEXT):
+        args = ssd_inputs(device, gen, S, H, P, N, G, Q)
+        for split in (False, True):
+            out["ssd"][f"S={S} {'split' if split else 'full'}"] = call_times(
+                lambda *a, split=split: skernel.ssd_scan(*a, Q, split=split), [args], 50)
     return out
 
 
 def phase_ab(parent: Path) -> dict:
-    """The gather, low-rank, replay and fused inject kernels of this tree
-    against a parent tree's on one card: parent, change, change, parent, each a
+    """The gather, low-rank, replay, fused inject and SSD kernels of this
+    tree against a parent tree's on one card: parent, change, change, parent, each a
     process of its own that builds its tree's kernels (``--time-kernels``).
     Prints each shape's four times of each kind (event, device, and below
     0.2 ms host) and the parent / change ratio of the means."""
@@ -684,7 +733,7 @@ def phase_ab(parent: Path) -> dict:
         runs.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
         log(f"[ab] {label} run from {src} in {time.perf_counter() - t0:.1f}s")
     table = {}
-    for kind in ("lut", "grouped", "lowrank", "replay", "attn_fused_inject"):
+    for kind in ("lut", "grouped", "lowrank", "replay", "attn_fused_inject", "ssd"):
         for key, times in runs[1][1][kind].items():
             for what in times:
                 parent_ms = [r[kind].get(key, {}).get(what) for lab, r in runs if lab == "parent"]
@@ -816,7 +865,8 @@ def _row_tiles(M: int, default: int) -> list[int]:
 
 def phase_attn_fused(device, cases: dict, int_rate: float) -> tuple[list, dict]:
     """Both fused attention kernels at every case: bit for bit against their
-    plain versions at three row tiles, one launch of its kernel per op call,
+    plain versions at three row tiles (inject also at two other T splits),
+    one launch of its kernel per op call,
     within the flip tolerance of the unfused seam composition; times and
     bounds.  Returns the rows and the launch counts of the op's call at the
     long-decode case, border 8."""
@@ -828,9 +878,11 @@ def phase_attn_fused(device, cases: dict, int_rate: float) -> tuple[list, dict]:
     from repro_torch.kernels.attn_fused import kernel as akernel
     from repro_torch.kernels.attn_fused import ops as aops
     from repro_torch.kernels.attn_fused import ref as aref
+    from repro_torch.kernels.inject_replay import kernel as rkernel
     from repro_torch.numerics import AMRNumerics, injection
     from repro_torch.numerics.quant import quantize_int8
 
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     dse = injection.register_schedule(reduction.get_schedule(2, 6), name="chip_smoke:b6")
     schedules = {"lut": [(8, None), (14, None)], "inject": [(8, None), (14, None), (6, dse)]}
     rows, counts = [], {}
@@ -869,7 +921,9 @@ def phase_attn_fused(device, cases: dict, int_rate: float) -> tuple[list, dict]:
                                                           max_pairs=PLAIN_REPLAY_PAIRS)
                 args = (q8, k8, v8, sq, sk, sv, mask)
                 want = plain(*args)
-                default = akernel.default_row_tile(G, M, method)
+                default = akernel.default_row_tile(G, M, method, T, sms)
+                tile_ms = {}  # inject at border 8: ms of each row tile
+                timed = method == "inject" and border == BORDER and handle is None
                 for bm in _row_tiles(M, default):
                     got = kern(*args, bm=bm)
                     torch.cuda.synchronize()
@@ -877,6 +931,36 @@ def phase_attn_fused(device, cases: dict, int_rate: float) -> tuple[list, dict]:
                         raise AssertionError(
                             f"attn_fused {method} {label} border {border} bm {bm}: kernel "
                             f"differs from plain by {float((got - want).abs().max())}")
+                    if timed:
+                        tile_ms[bm] = time_ms(lambda *a, bm=bm: kern(*a, bm=bm), [args], 5)
+                plan, variants = None, {}
+                if method == "inject":
+                    # the other T splits (one word a slice, one slice), the other
+                    # items count and, with one slice, the split join instead of a
+                    # whole block: bit for bit too, and timed at border 8
+                    prog = rkernel.program_tensors(inj, device)[0]
+                    plan = akernel.inject_launch_plan(G, M, D, T, P, default, sms, prog.n_slots,
+                                                      prog.n_opbits, prog.ops.shape[0])
+                    n_words = math.ceil(T / 32)
+                    others = {f"slice_words={w}": plan._replace(
+                        slice_words=w, slices=math.ceil(n_words / w), whole=False)
+                        for w in sorted({1, n_words} - {plan.slice_words})}
+                    others[f"items={rkernel.ITEMS + 1 - plan.items}"] = plan._replace(
+                        items=rkernel.ITEMS + 1 - plan.items)
+                    if plan.whole:
+                        others["whole=False"] = plan._replace(whole=False)
+                    for name, other in others.items():
+                        got = akernel.attn_fused_inject_with_plan(inj, *args, scale=scale,
+                                                                  plan=other)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"attn_fused inject {label} border {border}, {name}: kernel "
+                                f"differs from plain by {float((got - want).abs().max())}")
+                        if timed:
+                            variants[name] = time_ms(
+                                lambda *a, other=other: akernel.attn_fused_inject_with_plan(
+                                    inj, *a, scale=scale, plan=other), [args], 5)
                 for k_ in akernel.KERNELS:
                     k_.launches = 0
                 out = aops.fused_attention(q, kt, v, mask, **kw)
@@ -927,7 +1011,12 @@ def phase_attn_fused(device, cases: dict, int_rate: float) -> tuple[list, dict]:
                 reps = _reps(kern, args)
                 rows.append(dict(
                     method=method, case=label, border=border, schedule=handle or "default",
-                    shape=(G, M, D, T, P), bm=default, max_abs_err=float((out - want).abs().max()),
+                    shape=(G, M, D, T, P), bm=default,
+                    t_split=None if plan is None else dict(
+                        slice_words=plan.slice_words, slices=plan.slices, items=plan.items,
+                        whole=plan.whole, blocks=plan.blocks),
+                    row_tile_ms=tile_ms or None, other_plan_ms=variants or None,
+                    max_abs_err=float((out - want).abs().max()),
                     gap_to_seam=gap,
                     flipped_share=share, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                     ms=time_ms(kern, sets, reps),

@@ -16,66 +16,179 @@ scales the op makes (``ops.quantize_operands``) and return (G, M, P)
 float32, bit for bit their plain versions in ``ref.py``.
 
 A tensor's device decides the route: CPU tensors go to the plain versions;
-CUDA tensors go to the kernel, which raises on what it does not take.  A
-block holds the scores of its rows (4 T bytes a row) in shared memory, so
-the kernels take T up to about 57,000 (the LUT kernel) or 47,000 (the
-inject kernel, whose wire slots share the block's memory).  Each wrapper checks
-device, dtype, shape and contiguity, allocates the output, launches on
-PyTorch's current stream and counts the launch on its ``CudaKernel``
-(``LUT``, ``INJECT``).
+CUDA tensors go to the kernel, which raises on what it does not take.  The
+LUT kernel's block holds the scores of its rows (4 T bytes a row) in shared
+memory, so it takes T up to about 57,000.  The inject kernel splits T over
+blocks (``csrc/attn_tsplit.cuh``, ``inject_launch_plan``): its scores go to
+a per-stream scratch in device memory and its PV sums meet in a per-stream
+accumulator that the kernel leaves zero, so it takes any T and a call is
+one launch.  Each wrapper checks device, dtype, shape and contiguity,
+allocates the output, launches on PyTorch's current stream and counts the
+launch on its ``CudaKernel`` (``LUT``, ``INJECT``).
 """
 from __future__ import annotations
 
 import ctypes
+import math
+from functools import lru_cache
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.engine import CompiledInjector
 
-from ..amr_matmul.kernel import _check_cuda, _check_table, _route, _stream
+from ..amr_matmul.kernel import _check_cuda, _check_table, _route, _sm_count, _stream, _zeros
 from ..build import CudaKernel, CudaLibrary
 from ..inject_replay import kernel as rkernel
 from .ref import attn_fused_inject_ref, attn_fused_lut_ref
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOFTMAX = _CSRC / "attn_softmax.cuh"
+TSPLIT_HEADER = _CSRC / "attn_tsplit.cuh"  # the T split's join, for any fused kernel
 LUT_LIBRARY = CudaLibrary(_CSRC / "attn_fused_lut.cu", (_SOFTMAX,))
-INJECT_LIBRARY = CudaLibrary(_CSRC / "attn_fused_inject.cu", (_SOFTMAX, rkernel.DEVICE_HEADER),
-                             rkernel.DEFINES)
+INJECT_LIBRARY = CudaLibrary(_CSRC / "attn_fused_inject.cu",
+                             (_SOFTMAX, TSPLIT_HEADER, rkernel.DEVICE_HEADER), rkernel.DEFINES)
 LIBRARIES = (LUT_LIBRARY, INJECT_LIBRARY)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LUT = CudaKernel("attn_fused_lut", LUT_LIBRARY, "attn_fused_lut",
                  [_P] * 8 + [_I, _P, _F] + [_I] * 7 + [_P])
 INJECT = CudaKernel("attn_fused_inject", INJECT_LIBRARY, "attn_fused_inject",
-                    [_P] * 9 + [_I, _P, _P] + [_I] * 3 + [_F] + [_I] * 11 + [_P])
+                    [_P] * 11 + [_I, _P, _P] + [_I] * 3 + [_F] + [_I] * 13 + [_P])
 KERNELS = (LUT, INJECT)
 
-MAX_ROWS = 16                 # kMaxRows: rows of a sub-tile
+MAX_ROWS = 16                 # kMaxRows: rows of a sub-tile (lut); rows of a replay tile
 SMEM_LIMIT = 232448           # shared memory a block may use on Hopper (227 KB)
+SM_SMEM = 233472              # shared memory of an SM (228 KB), 1 KB of it reserved a block
 _SMEM_TARGET = 96 * 1024      # a sub-tile's share, so that two blocks fit an SM
-# blocks the default row tile keeps in flight: two 512-thread LUT blocks per
-# SM; four 128-thread replay blocks, as the replay matmul runs best
-_TILE_BLOCKS = {"lut": 256, "inject": 512}
-_INJECT_FIXED_WORDS = 256 + 2 * rkernel.POSITIONS + MAX_ROWS
+_LUT_TILE_BLOCKS = 256        # blocks the LUT kernel's default row tile keeps in flight
+_INJECT_MAX_PER_SM = 4        # inject blocks an SM holds at most (registers)
+INJECT_MAX_ROWS = 8           # rows of an inject row tile: more leave a block fewer k-lanes
+TILE_WORDS = 3                # tsplit::kTileWords: counters of a row tile
 
 
-def default_row_tile(G: int, M: int, method: str) -> int:
-    """The largest divisor of M up to 16 that leaves at least 256 (lut) or
-    512 (inject) blocks of G * M / bm, else 1: a long prefill fills the card
-    with blocks of several rows, a decode takes one row a block."""
-    for bm in range(min(MAX_ROWS, M), 0, -1):
-        if M % bm == 0 and G * (M // bm) >= _TILE_BLOCKS[method]:
+def default_row_tile(G: int, M: int, method: str, T: int = 0, sms: int = 0) -> int:
+    """Rows a block takes, a divisor of M up to 16.  lut: the largest that
+    leaves at least 256 blocks of G * M / bm, else 1 (a long prefill fills
+    the card with blocks of several rows, a decode takes one row a block).
+    inject (T and the card's SM count ``sms`` required): T is split over
+    blocks, so the largest up to 8 whose row tiles, cut into slices of one
+    32-column word, give at least ``sms`` items (each row tile packs K^T and
+    V once for all its rows; 16 rows leave a block half the k-lanes of 8,
+    and chip_smoke's phase 4 times the row tiles), else 1 (a short cache
+    spreads its rows instead)."""
+    if method == "inject" and (T < 1 or sms < 1):
+        raise ValueError(f"the inject row tile depends on T and the SM count, got {T}, {sms}")
+    items = math.ceil(T / 32) if method == "inject" else 1
+    need = sms if method == "inject" else _LUT_TILE_BLOCKS
+    for bm in range(min(INJECT_MAX_ROWS if method == "inject" else MAX_ROWS, M), 0, -1):
+        if M % bm == 0 and G * (M // bm) * items >= need:
             return bm
     return 1
 
 
+class InjectPlan(NamedTuple):
+    """A launch of the fused inject kernel: rows a tile, the T slice in
+    32-column words and the slices, the replay tiles of QK^T and PV (words
+    x rows), the k values a thread replays at once, whether a block takes a
+    whole row tile (one slice: scores in shared memory, no hand-off), the
+    blocks (else a QK^T and a PV item per row tile and slice), a block's
+    shared memory in bytes, and the int32 state (zero between calls) and
+    float32 scores scratch the launch takes, in words."""
+    bm: int
+    slice_words: int
+    slices: int
+    qk_wpb: int
+    qk_rpb: int
+    pv_wpb: int
+    pv_rpb: int
+    items: int
+    whole: bool
+    blocks: int
+    smem: int
+    state_words: int
+    score_words: int
+
+
+def inject_smem_bytes(items: int, n_slots: int, n_opbits: int, n_records: int,
+                      rpb: int, slab: int = 0) -> int:
+    """A block's dynamic shared memory (``smem_bytes`` in attn_fused_inject.cu):
+    the program, the wire slots of ``items`` k values a thread, the packed B
+    of a tile of ``rpb`` rows (the fewer rows of the QK^T and PV tiles:
+    more k-lanes), the operand bits, the final bits' slots and ``slab``
+    floats of scores and scales (a block that takes a whole row tile)."""
+    return 4 * (2 * n_records + n_slots * items * rkernel.THREADS
+                + items * n_opbits * (rkernel.THREADS // rpb) + 256 + 2 * rkernel.POSITIONS
+                + slab)
+
+
+@lru_cache(maxsize=256)
+def inject_launch_plan(G: int, M: int, D: int, T: int, P: int, bm: int, sms: int,
+                       n_slots: int, n_opbits: int, n_records: int) -> InjectPlan:
+    """The T split (``csrc/attn_tsplit.cuh``) and replay tiles of one call.
+
+    T is cut into slices of whole 32-column words, as few as give one wave
+    of QK^T items (the blocks the SMs hold at the kernel's shared memory, at
+    most ``_INJECT_MAX_PER_SM`` a SM) over the G M / bm row tiles: the long
+    decode splits its 256 words, a served decode (T = 24) or prefill (T =
+    16) keeps one slice.  With one slice a block takes its row tile whole
+    (``whole``: the scores stay in shared memory, as the rows' do where they
+    fit, and QK^T, the softmax and PV run in one block with no hand-off).
+    The replay tiles are ``block_shape``'s for the tile's rows (at most 16)
+    against the slice's words (QK^T) and P's words (PV).  A thread replays
+    ITEMS k values at once where the wire slots fit and both products take
+    more than one step of one k a thread (else 1: the extra items would
+    replay nothing, as in a served prefill's PV over 16 keys).  int32 sums
+    are exact in any order and the softmax's row sum has one order whatever
+    the slicing, so the plan changes the time, never a bit.
+    """
+    n_words = math.ceil(T / 32)
+    rows = min(bm, MAX_ROWS)
+    tiles = G * (M // bm)
+    # the fewest rows a tile of the call takes (block_shape gives rpb <= the
+    # power of two at or above rows): its packed B words bound the wave
+    rpb = min(rkernel.block_shape(rows, w)[1] for w in (n_words, math.ceil(P / 32)))
+    smem = inject_smem_bytes(rkernel.ITEMS, n_slots, n_opbits, n_records, rpb)
+    per_sm = max(1, min(_INJECT_MAX_PER_SM, SM_SMEM // (smem + 1024)))
+    want = min(n_words, max(1, math.ceil(per_sm * sms / tiles)))
+    slice_words = math.ceil(n_words / want)
+    slices = math.ceil(n_words / slice_words)
+    qk_wpb, qk_rpb, qk_kpb = rkernel.block_shape(rows, slice_words)
+    pv_wpb, pv_rpb, pv_kpb = rkernel.block_shape(rows, math.ceil(P / 32))
+    rpb = min(qk_rpb, pv_rpb)
+    slab = bm * (32 * n_words + 1)
+    items = rkernel.ITEMS
+    smem = inject_smem_bytes(items, n_slots, n_opbits, n_records, rpb)
+    if smem > SMEM_LIMIT or D <= qk_kpb or min(T, 32 * slice_words) <= pv_kpb:
+        items = 1
+        smem = inject_smem_bytes(items, n_slots, n_opbits, n_records, rpb)
+    whole = slices == 1 and smem + 4 * slab <= SMEM_LIMIT
+    if whole:
+        smem += 4 * slab
+    return InjectPlan(bm, slice_words, slices, qk_wpb, qk_rpb, pv_wpb, pv_rpb, items, whole,
+                      (1 if whole else 2) * tiles * slices, smem,
+                      1 + TILE_WORDS * tiles + G * M * P, G * M * 32 * n_words + G * M)
+
+
+# per (device, stream): the inject kernel's score scratch (float32, any content)
+_SCORES: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _score_scratch(device: torch.device, stream: int, n: int) -> int:
+    key = (device.index, stream)
+    scores = _SCORES.get(key)
+    if scores is None or scores.numel() < n:
+        scores = torch.empty(n, dtype=torch.float32, device=device)
+        _SCORES[key] = scores
+    return scores.data_ptr()
+
+
 def _sub_tile_rows(bm: int, fixed: int, per_row: int, T: int) -> int:
-    """Rows a block holds at once: up to 16 (and bm) within the target share
-    of shared memory; raises when one row's scores do not fit at all."""
+    """Rows a LUT block holds at once: up to 16 (and bm) within the target
+    share of shared memory; raises when one row's scores do not fit at all."""
     if fixed + per_row > SMEM_LIMIT:
-        raise ValueError(f"the fused attention kernels hold a row's {T} scores in shared "
+        raise ValueError(f"the fused attention LUT kernel holds a row's {T} scores in shared "
                          f"memory: T={T} needs {fixed + per_row} bytes, more than a "
                          f"block's {SMEM_LIMIT}")
     return max(1, min(MAX_ROWS, bm, (_SMEM_TARGET - fixed) // per_row))
@@ -142,23 +255,39 @@ def attn_fused_lut(q, kt, v, sq, sk, sv, mask, table: torch.Tensor, *, scale: fl
 def attn_fused_inject(inj: CompiledInjector, q, kt, v, sq, sk, sv, mask, *, scale: float,
                       bm: int | None = None) -> torch.Tensor:
     """Fused attention with both products replayed on ``inj``'s circuit
-    -> (G, M, P) float32; ``bm`` as in ``attn_fused_lut``.  The caller
-    bounds D and T times ``inj.max_abs_product`` below 2**31."""
+    -> (G, M, P) float32; ``bm`` query rows per tile (a divisor of M; None
+    = ``default_row_tile``) change the time, never a bit, and so does the
+    T split (``inject_launch_plan``).  The caller bounds D and T times
+    ``inj.max_abs_product`` below 2**31."""
     G, M, D, T, P = _check_operands(q, kt, v, sq, sk, sv, mask)
-    bm = default_row_tile(G, M, "inject") if bm is None else bm
-    _check_bm(M, bm)
+    if bm is not None:
+        _check_bm(M, bm)
     if _route(q, kt, v, sq, sk, sv, mask) == "cpu":
         return attn_fused_inject_ref(inj, q, kt, v, sq, sk, sv, mask, scale)
     _check_cuda(q=q, kt=kt, v=v, sq=sq, sk=sk, sv=sv, mask=mask)
+    sms = _sm_count(q.device)
+    bm = default_row_tile(G, M, "inject", T, sms) if bm is None else bm
+    prog = rkernel.program_tensors(inj, q.device)[0]
+    plan = inject_launch_plan(G, M, D, T, P, bm, sms, prog.n_slots, prog.n_opbits,
+                              prog.ops.shape[0])
+    return attn_fused_inject_with_plan(inj, q, kt, v, sq, sk, sv, mask, scale=scale, plan=plan)
+
+
+def attn_fused_inject_with_plan(inj: CompiledInjector, q, kt, v, sq, sk, sv, mask, *,
+                                scale: float, plan: InjectPlan) -> torch.Tensor:
+    """The inject kernel on checked CUDA operands under ``plan``: the
+    wrapper passes ``inject_launch_plan``'s, the card tests others, so
+    that every row tile and T split is held to the plain version."""
+    G, M, D = q.shape
+    T, P = kt.shape[-1], v.shape[-1]
     prog, ops, fin, vbits = rkernel.program_tensors(inj, q.device)
-    fixed = 4 * (prog.n_slots * rkernel.THREADS + rkernel.THREADS * prog.n_opbits
-                 + prog.ops.size + _INJECT_FIXED_WORDS)
-    rows = _sub_tile_rows(bm, fixed, 4 * T, T)
-    qk_wpb, qk_rpb, _ = rkernel.block_shape(rows, -(-T // 32))
-    pv_wpb, pv_rpb, _ = rkernel.block_shape(rows, -(-P // 32))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty((G, M, P), dtype=torch.float32, device=q.device)
+    state = _zeros(q.device, stream, plan.state_words, "attn_inject")
+    scores = _score_scratch(q.device, stream, plan.score_words)
     INJECT(q.data_ptr(), kt.data_ptr(), v.data_ptr(), sq.data_ptr(), sk.data_ptr(),
-           sv.data_ptr(), mask.data_ptr(), out.data_ptr(), ops.data_ptr(), prog.ops.shape[0],
-           fin.data_ptr(), vbits.data_ptr(), prog.n_opbits, prog.n_slots, prog.offset, scale,
-           G, M, D, T, P, bm, rows, qk_wpb, qk_rpb, pv_wpb, pv_rpb, _stream())
+           sv.data_ptr(), mask.data_ptr(), out.data_ptr(), state, scores, ops.data_ptr(),
+           prog.ops.shape[0], fin.data_ptr(), vbits.data_ptr(), prog.n_opbits, prog.n_slots,
+           prog.offset, scale, G, M, D, T, P, plan.bm, plan.slice_words, plan.qk_wpb,
+           plan.qk_rpb, plan.pv_wpb, plan.pv_rpb, plan.items, int(plan.whole), stream)
     return out

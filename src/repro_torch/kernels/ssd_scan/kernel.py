@@ -8,9 +8,12 @@ in split mode, the state before each chunk.
 A tensor's device decides the route: CPU tensors go to the plain version
 (``ref.ssd_ref``); CUDA tensors go to the kernel, which raises on what it
 does not take.  The wrapper makes x, b and c contiguous (on the model's path
-they already are: reshapes of the contiguous conv outputs), allocates the
+they already are: reshapes of the contiguous conv outputs) and b and c
+16-byte aligned (copying a view that is not), allocates the
 float32 outputs, launches on PyTorch's current stream and counts the launch
-on ``SSD``.
+on ``SSD``.  The kernel runs one block per (chunk, batch, head, slice of P)
+(``ssd_launch_plan``) and joins the state across chunks inside the launch,
+through per-stream counters that it leaves zero: one call is one launch.
 """
 from __future__ import annotations
 
@@ -18,9 +21,11 @@ import ctypes
 import math
 from functools import lru_cache
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
+from ..amr_matmul.kernel import _sm_count, _zeros, fills_the_card
 from ..build import CudaKernel, CudaLibrary
 from .ref import ssd_ref
 
@@ -30,22 +35,61 @@ LIBRARIES = (LIBRARY,)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SSD = CudaKernel("ssd_scan", LIBRARY, "ssd_scan",
-                 [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
+                 [_P] * 5 + [_I] + [_P] * 4 + [_I] * 9 + [_P])
 KERNELS = (SSD,)
 
-P_BLOCK = 16  # kPB in ssd_scan.cu: columns of P per block
+THREADS = 256                # kThreads in ssd_scan.cu
+TILE = 64                    # kTile: rows of a staged B or C tile
+MAX_N = 128                  # kMaxN: the d_state the kernel takes
+MAX_STATE_TILE = 8192        # kMaxStateTile: N x p_block at most
+P_BLOCKS = (64, 32, 16)      # columns of P a block, widest first
+
+
+class SsdPlan(NamedTuple):
+    """An SSD launch: columns of P a block, the P slices, the chunks, the
+    blocks (one per chunk, batch, head and P slice; the kernel hands them
+    out chunk-major, then batch, head and slice) and the dynamic shared
+    memory of a block in bytes."""
+    p_block: int
+    p_split: int
+    chunks: int
+    blocks: int
+    smem: int
+
+
+def ssd_smem_bytes(N: int, chunk: int, p_block: int) -> int:
+    """A block's dynamic shared memory (``smem_floats`` in ssd_scan.cu): the
+    C and B tiles, the masked C B^T tile, x dt of a chunk, the state and
+    three per-row arrays."""
+    rows = math.ceil(chunk / TILE) * TILE
+    return 4 * (2 * TILE * (N + 4) + TILE * (TILE + 4) + rows * p_block + N * p_block + 3 * rows)
+
+
+@lru_cache(maxsize=256)
+def ssd_launch_plan(B: int, S: int, H: int, P: int, N: int, chunk: int, sms: int) -> SsdPlan:
+    """The widest P slice (64, 32 or 16 columns, dividing P, with N x
+    p_block <= 8192) unless the blocks would not fill the card
+    (``fills_the_card``): then narrower slices, down to 16 columns, so that
+    a short prompt (one chunk a head) still spreads over the SMs.  A wider
+    slice computes C B^T once for more columns."""
+    chunks = math.ceil(S / chunk)
+    fits = [pb for pb in P_BLOCKS if P % pb == 0 and N * pb <= MAX_STATE_TILE]
+    if not fits:
+        raise ValueError(f"the SSD kernel takes head_dim P % 16 == 0 and d_state N <= "
+                         f"{MAX_N}, got P={P}, N={N}")
+    p_block = fits[0]
+    for pb in fits:
+        p_block = pb
+        if fills_the_card(chunks * B * H * (P // pb), sms):
+            break
+    p_split = P // p_block
+    return SsdPlan(p_block, p_split, chunks, chunks * B * H * p_split,
+                   ssd_smem_bytes(N, chunk, p_block))
 
 
 @lru_cache(maxsize=8)
 def _max_smem(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
-
-
-@lru_cache(maxsize=16)
-def _smem_bytes(n: int, chunk: int) -> int:
-    fn = LIBRARY.handle().ssd_scan_smem_bytes
-    fn.argtypes, fn.restype = [_I, _I], ctypes.c_longlong
-    return int(fn(n, chunk))
 
 
 def _check_shapes(x, dt, a_log, b, c) -> None:
@@ -84,19 +128,24 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Te
         raise TypeError(f"dt and a_log must be float32, got {dt.dtype}, {a_log.dtype}")
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
-    if P % P_BLOCK:
-        raise ValueError(f"the SSD kernel takes head_dim P % {P_BLOCK} == 0, got {P}")
-    smem = _smem_bytes(N, chunk)
-    if smem > _max_smem(dev):
-        raise ValueError(f"the SSD kernel needs {smem} bytes of shared memory for d_state {N} "
-                         f"and chunk {chunk}; the card allows {_max_smem(dev)}")
+    if P % 16:
+        raise ValueError(f"the SSD kernel takes head_dim P % 16 == 0, got {P}")
+    if N % 4 or N > MAX_N:
+        raise ValueError(f"the SSD kernel takes d_state N % 4 == 0 and N <= {MAX_N}, got {N}")
+    plan = ssd_launch_plan(B, S, H, P, N, chunk, _sm_count(dev))
+    if plan.smem > _max_smem(dev):
+        raise ValueError(f"the SSD kernel needs {plan.smem} bytes of shared memory for d_state "
+                         f"{N} and chunk {chunk}; the card allows {_max_smem(dev)}")
     x, dt, a_log, b, c = (t.contiguous() for t in (x, dt, a_log, b, c))
-    nc = math.ceil(S / chunk)
+    # the kernel reads b and c two elements a load: a view at an odd offset is copied
+    b, c = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (b, c))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=dev)
     h_final = torch.empty((B, H, N, P), dtype=torch.float32, device=dev)
-    h_prev = torch.empty((B, nc, H, N, P) if split else (1,), dtype=torch.float32, device=dev)
+    h_prev = torch.empty((B, plan.chunks, H, N, P) if split else (1,), dtype=torch.float32,
+                         device=dev)
+    counters = _zeros(dev, stream, 1 + B * H * plan.p_split, "ssd")
     SSD(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(), c.data_ptr(),
         int(x.dtype == torch.bfloat16), y.data_ptr(), h_prev.data_ptr(), h_final.data_ptr(),
-        B, S, H, P, G, N, chunk, int(split),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        counters, B, S, H, P, G, N, chunk, plan.p_block, int(split), stream)
     return (y, h_prev, h_final) if split else (y, h_final)

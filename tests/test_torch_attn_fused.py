@@ -298,7 +298,11 @@ def test_kernel_wrappers_check_their_operands():
                                  scale=4.0, bm=3)
     assert kernel.default_row_tile(1, 8192, "lut") == 16
     assert kernel.default_row_tile(1, 2048, "lut") == 8
-    assert kernel.default_row_tile(1, 2048, "inject") == 4
+    assert kernel.default_row_tile(1, 2048, "inject", 256, 132) == 8
+    assert kernel.default_row_tile(2, 8, "inject", 8192, 132) == 8
+    assert kernel.default_row_tile(2, 8, "inject", 24, 132) == 1
+    with pytest.raises(ValueError, match="depends on T"):
+        kernel.default_row_tile(2, 8, "inject")
     assert kernel.default_row_tile(2, 8, "lut") == 1
 
 

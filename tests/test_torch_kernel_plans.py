@@ -1,4 +1,4 @@
-"""The host-side plans of two CUDA kernels, on the CPU.
+"""The host-side plans of the CUDA kernels, on the CPU.
 
 The circuit-replay kernel compiles ``CELL_PAIRS``, the (sum, carry) truth
 tables of the port's cells, as LOP3 immediates, and takes a program of runs
@@ -8,7 +8,10 @@ must hold every pair the cells can produce, so that no schedule built from
 them takes the slow form; PP gates run branch-free on their own bytes.  The
 low-rank kernel's grid must fill the card at the rank-8 gemma-2b path's
 shapes while its K chunks, and so its summation order, depend on K alone.
-The kernels themselves run only on a GPU (tests/test_torch_kernels_cuda.py).
+The SSD scan's plan covers every (chunk, batch, head, P slice) with one
+block, in an order where a block only waits on lower tickets; the fused
+inject kernel's T split covers T in whole words.  The kernels themselves
+run only on a GPU (tests/test_torch_kernels_cuda.py).
 """
 import itertools
 import math
@@ -20,7 +23,9 @@ import pytest
 from repro_torch.core import engine, reduction
 from repro_torch.core.cells import CELLS
 from repro_torch.kernels.amr_matmul import kernel as mkernel
+from repro_torch.kernels.attn_fused import kernel as akernel
 from repro_torch.kernels.inject_replay import kernel as rkernel
+from repro_torch.kernels.ssd_scan import kernel as skernel
 
 BORDERS = [None] + list(range(21))
 H100_SMS = 132
@@ -260,3 +265,138 @@ def test_bindings_match_the_c_signatures(kern):
                      ctypes.c_longlong if decl.startswith("long long") else
                      ctypes.c_float if decl.startswith("float") else ctypes.c_int)
     assert kern.argtypes == kinds
+
+
+# (B, S, H, P, N, chunk) of the SSD scan: mamba2-370m's prefill of a 16-token
+# prompt, 1024 and 2048 tokens (4 and 8 chunks of 256: below and above the
+# SM count), and the CUDA tests' shapes (ragged chunks, G < H, small widths)
+SSD_SHAPES = [(1, 16, 32, 64, 128, 256), (1, 1024, 32, 64, 128, 256),
+              (1, 2048, 32, 64, 128, 256), (2, 300, 8, 32, 64, 128), (1, 37, 4, 16, 16, 16),
+              (1, 8, 2, 16, 16, 16), (2, 5000, 32, 64, 128, 256), (1, 700, 3, 48, 64, 256)]
+
+
+def _ssd_item(plan, ticket, B, H):
+    """(chunk, batch, head, first column of P) of the SSD block that takes
+    ``ticket``, decoded as ssd_scan.cu decodes it: chunk-major, then batch,
+    head and P slice."""
+    chunk, rem = divmod(ticket, B * H * plan.p_split)
+    batch, rem = divmod(rem, H * plan.p_split)
+    head, ps = divmod(rem, plan.p_split)
+    return chunk, batch, head, ps * plan.p_block
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES)
+def test_ssd_plan_covers_every_item_once(B, S, H, P, N, chunk):
+    """Tickets 0 .. blocks - 1 name every (chunk, batch, head, P slice)
+    once, and the block a chunk's block waits on (the same batch, head and
+    slice one chunk before) holds a lower ticket."""
+    plan = skernel.ssd_launch_plan(B, S, H, P, N, chunk, H100_SMS)
+    assert plan.chunks == math.ceil(S / chunk)
+    assert plan.p_block in skernel.P_BLOCKS and plan.p_block * plan.p_split == P
+    assert N * plan.p_block <= skernel.MAX_STATE_TILE
+    tickets = {_ssd_item(plan, t, B, H): t for t in range(plan.blocks)}
+    want = {(c, b, h, p0) for c in range(plan.chunks) for b in range(B) for h in range(H)
+            for p0 in range(0, P, plan.p_block)}
+    assert set(tickets) == want and len(tickets) == plan.blocks
+    for (c, b, h, p0), t in tickets.items():
+        if c > 0:
+            assert tickets[(c - 1, b, h, p0)] < t
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES)
+def test_ssd_plan_fills_the_card_where_the_shape_allows(B, S, H, P, N, chunk):
+    """A P split only where the chunks x batch x heads leave SMs empty: the
+    widest slice that fills the card, else the narrowest (16 columns)."""
+    plan = skernel.ssd_launch_plan(B, S, H, P, N, chunk, H100_SMS)
+    base = plan.chunks * B * H
+    if mkernel.fills_the_card(base, H100_SMS):
+        assert plan.p_split == 1 or plan.p_block == max(
+            pb for pb in skernel.P_BLOCKS if P % pb == 0 and N * pb <= skernel.MAX_STATE_TILE)
+    else:
+        assert mkernel.fills_the_card(plan.blocks, H100_SMS) or plan.p_block == 16
+    assert skernel.ssd_launch_plan(1, 16, 32, 64, 128, 256, H100_SMS).blocks == 128
+    assert skernel.ssd_launch_plan(1, 1024, 32, 64, 128, 256, H100_SMS).p_split == 1
+
+
+@pytest.mark.parametrize("p_block", skernel.P_BLOCKS)
+def test_ssd_plan_fits_shared_memory(p_block):
+    """At N = 128 and chunk 256 (mamba2-370m) a block fits the 227 KB a
+    block may use, whatever the P slice; the plan reports the source's
+    formula."""
+    assert skernel.ssd_smem_bytes(128, 256, p_block) <= SM90_SMEM_PER_BLOCK
+    plan = skernel.ssd_launch_plan(1, 2048, 32, 64, 128, 256, H100_SMS)
+    assert plan.smem == skernel.ssd_smem_bytes(128, 256, plan.p_block) <= SM90_SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="d_state"):
+        skernel.ssd_launch_plan(1, 16, 2, 16, 1024, 256, H100_SMS)
+
+
+def test_ssd_constants_match_the_source():
+    text = skernel.LIBRARY.source.read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = ([^;/]+);", text))
+    assert int(consts["kThreads"]) == skernel.THREADS
+    assert int(consts["kTile"]) == skernel.TILE
+    assert int(consts["kMaxN"]) == skernel.MAX_N
+    assert int(consts["kMaxStateTile"]) == skernel.MAX_STATE_TILE
+
+
+def _inject_plan(G, M, D, T, P, bm=None, border=8):
+    prog = _program(border)
+    bm = akernel.default_row_tile(G, M, "inject", T, H100_SMS) if bm is None else bm
+    return akernel.inject_launch_plan(G, M, D, T, P, bm, H100_SMS, prog.n_slots,
+                                      prog.n_opbits, prog.ops.shape[0])
+
+
+# (G, M, D, T, P) of the fused attention op at gemma-2b's width: the long
+# decode, the served decode and prefill, the inject long prefill; and the
+# CUDA tests' shapes (T off a word, small widths)
+INJECT_SHAPES = [(2, 8, 256, 8192, 256), (2, 8, 256, 24, 256), (1, 128, 256, 16, 256),
+                 (1, 2048, 256, 256, 256), (3, 6, 40, 70, 33), (1, 64, 16, 1000, 24),
+                 (2, 8, 256, 1000, 256), (1, 2, 16, 60000, 8)]
+
+
+@pytest.mark.parametrize("bm", [None, 1, 2])
+@pytest.mark.parametrize("G,M,D,T,P", INJECT_SHAPES)
+def test_inject_t_split_covers_t_in_whole_words(G, M, D, T, P, bm):
+    """The slices cover T's words once, the last one partial where T is
+    not a multiple of 32; the state and score scratch have the kernel's
+    sizes; a block's shared memory fits."""
+    plan = _inject_plan(G, M, D, T, P, bm)
+    n_words = math.ceil(T / 32)  # the slices as attn_fused_inject.cu takes them
+    words = [(w, min(n_words, w + plan.slice_words)) for w in range(0, n_words, plan.slice_words)]
+    assert len(words) == plan.slices and words[0][0] == 0
+    assert words[-1][1] == math.ceil(T / 32)
+    assert all(a < b and b == c for (a, b), (c, _) in zip(words, words[1:] + [(words[-1][1], 0)]))
+    assert all(b - a == plan.slice_words for a, b in words[:-1])
+    assert min(T, 32 * words[-1][1]) - 32 * words[-1][0] >= 1
+    tiles = G * (M // plan.bm)
+    assert plan.blocks == (1 if plan.whole else 2) * tiles * plan.slices
+    assert not plan.whole or plan.slices == 1
+    assert plan.state_words == 1 + akernel.TILE_WORDS * tiles + G * M * P
+    assert plan.score_words == G * M * 32 * math.ceil(T / 32) + G * M
+    assert plan.smem <= SM90_SMEM_PER_BLOCK and plan.items in (1, rkernel.ITEMS)
+    for wpb, rpb in ((plan.qk_wpb, plan.qk_rpb), (plan.pv_wpb, plan.pv_rpb)):
+        assert rkernel.THREADS % (wpb * rpb) == 0 and wpb & (wpb - 1) == 0
+
+
+def test_inject_t_split_fills_the_card_at_the_long_decode():
+    """gemma-2b's 8192-token decode (8 rows a group, 2 groups) runs at
+    least 132 blocks of each kind, in row tiles of all 8 rows (K^T and V
+    packed once for the 8), ITEMS k values a thread; the served decode and
+    prefill keep one slice."""
+    plan = _inject_plan(2, 8, 256, 8192, 256)
+    assert plan.bm == 8 and plan.blocks // 2 >= H100_SMS and plan.items == rkernel.ITEMS
+    assert not plan.whole
+    for G, M, T in ((2, 8, 24), (1, 128, 16)):
+        plan = _inject_plan(G, M, 256, T, 256)
+        assert plan.slices == 1 and plan.whole and plan.blocks == G * M // plan.bm
+
+
+def test_inject_constants_match_the_source():
+    text = akernel.INJECT_LIBRARY.source.read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = ([^;/]+);", text))
+    assert int(consts["kThreads"]) == rkernel.THREADS
+    assert int(consts["kItems"]) == rkernel.ITEMS
+    assert int(consts["kMaxSmem"]) == akernel.SMEM_LIMIT
+    header = akernel.TSPLIT_HEADER.read_text()
+    assert int(re.search(r"constexpr int kTileWords = (\d+);", header).group(1)) == \
+        akernel.TILE_WORDS

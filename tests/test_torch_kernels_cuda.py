@@ -21,7 +21,9 @@ plain version's order), for every row tile, and the op stays within
 of the LUT kernel with a planted fault in its softmax must fail the bitwise
 check.
 """
+import ctypes
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -389,6 +391,10 @@ _SSD_CARRY = (1, 1024, 32, 64, 128, 1, 256, torch.bfloat16)  # 4 chunks at the m
     (1, 37, 4, 16, 16, 4, 16, torch.float32, False),        # the reduced config's widths
     _SSD_CARRY + (True,),                                   # 4 chunks, the state carried
     (2, 300, 8, 32, 64, 2, 128, torch.float32, True),       # G < H, ragged, carried
+    (1, 2048, 32, 64, 128, 1, 256, torch.bfloat16, False),  # 8 chunks: more blocks than SMs
+    (1, 2048, 32, 64, 128, 1, 256, torch.bfloat16, True),   # the same, carried
+    (1, 512, 8, 64, 128, 1, 128, torch.float32, True),      # P split (16 columns), 4 chunks
+    (3, 1000, 5, 48, 32, 5, 256, torch.float32, True),      # P split of 48, ragged, B > 1
 ])
 def test_ssd_kernel_within_bound_of_plain(cuda, split, B, S, H, P, N, G, chunk, dtype, carry):
     args = _ssd_inputs(B, S, H, P, N, G, dtype, cuda, carry_chunk=chunk if carry else None)
@@ -409,15 +415,15 @@ _TF32 = ("__device__ __forceinline__ float tf32(float v) {\n"
          "  return __uint_as_float((__float_as_uint(v) + 0x1000u) & 0xffffe000u);\n}\n")
 _BF16 = ("__device__ __forceinline__ float bf16(float v) {\n"
          "  return __bfloat162float(__float2bfloat16(v));\n}\n")
-_DECAY = "acc[j] * expf(sm.cum[tg] - sm.cum[sg])"
-_XDT = "widen(x[((size_t(bi) * S + r0 + t) * H + hd) * P + p0 + p]) * sm.dt[t]"
+_DECAY = "acc[i][j] * expf(s_cum[tg] - s_cum[sg])"
+_XDT = "widen(x[xrow + pc]) * s_dt[s]"
 SSD_PLANTS = {
-    "drop_carry": ("sm.h[i] = decay_q * sm.h[i] + sm.hacc[i];", "sm.h[i] = sm.hacc[i];"),
+    "drop_carry": ("hn[j] = decay_q * hcv[j] + cacc[r][i][j];", "hn[j] = cacc[r][i][j];"),
     "half_decay": ("const float decay_q = expf(cum_q);",
                    "const float decay_q = expf(0.5f * cum_q);"),
     "tf32_xdt": (_XDT, f"tf32({_XDT})"),
-    "tf32_decay": (_DECAY, "acc[j] * tf32(expf(sm.cum[tg] - sm.cum[sg]))"),
-    "bf16_decay": (_DECAY, "acc[j] * bf16(expf(sm.cum[tg] - sm.cum[sg]))"),
+    "tf32_decay": (_DECAY, "acc[i][j] * tf32(expf(s_cum[tg] - s_cum[sg]))"),
+    "bf16_decay": (_DECAY, "acc[i][j] * bf16(expf(s_cum[tg] - s_cum[sg]))"),
 }
 
 
@@ -457,6 +463,34 @@ def test_ssd_check_fails_a_planted_fault(cuda, ssd_plants, monkeypatch, capsys, 
     with capsys.disabled():
         print(f"\n[plant] {plant}: err/bound full {ratios[0]:.4g} split {ratios[1]:.4g}")
     assert min(ratios) > 1.0, ratios
+
+
+def test_ssd_kernel_repeats_bit_for_bit(cuda):
+    """The kernel leaves its ticket and chain counters zero: calls of other
+    shapes and modes in between, the same call gives the same bits (each
+    output is summed in a fixed order), also on a b that starts off a
+    16-byte boundary; the wrapper's plan matches the source's shared
+    memory."""
+    first = _ssd_inputs(1, 2048, 32, 64, 128, 1, torch.bfloat16, cuda, carry_chunk=256)
+    other = _ssd_inputs(2, 300, 8, 32, 64, 2, torch.float32, cuda, carry_chunk=128)
+    want = skernel.ssd_scan(*first, 256, split=True)
+    for _ in range(3):
+        skernel.ssd_scan(*other, 128)
+        skernel.ssd_scan(*other, 128, split=True)
+        got = skernel.ssd_scan(*first, 256, split=True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    # b at an offset of one element: the wrapper copies it to an aligned buffer
+    x, dt, a_log, b, c = first
+    shifted = torch.empty(b.numel() + 1, dtype=b.dtype, device=cuda)[1:].view(b.shape)
+    shifted.copy_(b)
+    got = skernel.ssd_scan(x, dt, a_log, shifted, c, 256, split=True)
+    torch.cuda.synchronize()
+    assert shifted.data_ptr() % 16 and all(torch.equal(g, w) for g, w in zip(got, want))
+    fn = skernel.LIBRARY.handle().ssd_scan_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    for n, q, pb in ((128, 256, 64), (16, 16, 16), (64, 128, 32)):
+        assert fn(n, q, pb) == skernel.ssd_smem_bytes(n, q, pb)
 
 
 def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -514,7 +548,7 @@ ATTN_SHAPES = [(2, 8, 256, 24, 256, False), (1, 128, 256, 16, 256, True),
 
 
 def _row_tiles(M):
-    return [None] + [b for b in (1, 2, 8) if M % b == 0]
+    return [None] + [b for b in (1, 2, 8, 16) if M % b == 0]
 
 
 @pytest.mark.parametrize("border", [8, 14])
@@ -547,6 +581,60 @@ def test_attn_fused_inject_kernel_bitwise(cuda, schedule, G, M, D, T, P, causal)
         assert akernel.INJECT.launches == before + 1
         torch.cuda.synchronize()
         assert torch.equal(got, want), (bm, float((got - want).abs().max()))
+
+
+def _inject_plans(inj, G, M, D, T, P, device):
+    """The wrapper's plan for each row tile and, for each, T slices of 1,
+    2 and 3 words and of all of T (there also a block taking the whole
+    tile), with 1 and ITEMS k values a thread."""
+    prog = rkernel.program_tensors(inj, device)[0]
+    n_words = math.ceil(T / 32)
+    plans = []
+    for bm in _row_tiles(M)[1:]:
+        base = akernel.inject_launch_plan(G, M, D, T, P, bm, 132, prog.n_slots, prog.n_opbits,
+                                          prog.ops.shape[0])
+        plans.append(base)
+        for words in sorted({1, 2, 3, n_words} & set(range(1, n_words + 1))):
+            for items in (1, rkernel.ITEMS):
+                for whole in {False, words == n_words}:
+                    qk_wpb, qk_rpb, _ = rkernel.block_shape(min(bm, 16), words)
+                    plans.append(base._replace(
+                        slice_words=words, slices=math.ceil(n_words / words), qk_wpb=qk_wpb,
+                        qk_rpb=qk_rpb, items=items, whole=whole))
+    return plans
+
+
+@pytest.mark.parametrize("G,M,D,T,P", [(2, 8, 256, 1000, 256), (1, 16, 64, 300, 40),
+                                       (2, 4, 32, 33, 8)])
+def test_attn_fused_inject_every_t_split_bitwise(cuda, G, M, D, T, P):
+    """Every row tile and T split, with 1 and ITEMS k values a thread: bit
+    for bit the plain version.  T is not a multiple of a word (nor of the
+    slices); one row is fully masked, and a slice of T (words 1-2) is
+    masked in every other row."""
+    inj = engine.get_injector(2, 8)
+    q8, k8, v8, sq, sk, sv, mask = _attn_operands(G, M, D, T, P, 5, cuda, method="inject")
+    mask = mask.clone()
+    mask[0, 1] = 0
+    mask[:, ::2, 32:96] = 0
+    args = (q8, k8, v8, sq, sk, sv, mask)
+    want = aref.attn_fused_inject_ref(inj, *args, 16.0, max_pairs=1 << 24)
+    for plan in _inject_plans(inj, G, M, D, T, P, cuda):
+        before = akernel.INJECT.launches
+        got = akernel.attn_fused_inject_with_plan(inj, *args, scale=16.0, plan=plan)
+        torch.cuda.synchronize()
+        assert akernel.INJECT.launches == before + 1
+        assert torch.equal(got, want), (plan, float((got - want).abs().max()))
+
+
+def test_attn_fused_inject_takes_a_long_t(cuda):
+    """The scores live in device memory, not in a block's shared memory:
+    T = 60,000 (beyond the LUT kernel's limit) runs, bit for bit."""
+    inj = engine.get_injector(2, 8)
+    args = _attn_operands(1, 2, 16, 60000, 8, 3, cuda, method="inject")
+    want = aref.attn_fused_inject_ref(inj, *args, 4.0, max_pairs=1 << 24)
+    got = akernel.attn_fused_inject(inj, *args, scale=4.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("method", ["lut", "inject"])

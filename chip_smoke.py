@@ -37,14 +37,15 @@ Phases (any failure raises, and the run exits non-zero):
 2b. A/B, with ``--parent`` (a tree of the parent commit, for example
    ``git archive`` unpacked under ``build/``): the gather kernels (border
    8) at the gemma-2b and mamba2-370m rank-0 paths' shapes, the low-rank
-   kernel, the replay kernel (border 8) and the fused attention inject
-   kernel (served decode and prefill, long decode and prefill) at the
-   gemma-2b path's shapes, and the SSD kernel at S = 16, 1024 and 2048 in split and full
-   mode at mamba2-370m's widths, parent, change, change, parent,
+   kernel, the replay kernel (border 8) and the fused attention LUT and
+   inject kernels (served decode and prefill, long decode and prefill) at
+   the gemma-2b path's shapes, and the SSD kernel at S = 16, 1024 and 2048
+   in split and full mode at mamba2-370m's widths, parent, change, change,
+   parent,
    each run a process of its own that builds its tree's kernels: the event
-   time (over 200 calls where a call takes less than 0.2 ms, with the host
-   time beside it: the wrapper's checks, plan and launch) and the device
-   time, side by side;
+   time (where a call takes less than 0.2 ms, the median of 5 windows of
+   200 calls, with the host time beside it: the wrapper's checks, plan and
+   launch) and the device time, side by side;
 3. reference — reduced gemma-2b in float32 on the card (kernels) and on
    the CPU (plain versions), same weights, under amr_kernel rank 0 and 8
    and amr_inject, and reduced mamba2-370m under exact (SSD kernel in full
@@ -60,10 +61,11 @@ Phases (any failure raises, and the run exits non-zero):
    over gemma-2b's 8192-token context on seeded operands; at border 8 and
    14 (int16 and int32 tables), inject also on a registered border-6
    schedule (a DSE candidate).  Each kernel equals its plain version bit
-   for bit at three row tiles (the inject kernel also at T slices of one
-   word and of all of T, at the other items count and, where one block
-   takes a whole row tile, through the split join; at border 8 each of
-   these is timed), and the op is within
+   for bit at three row tiles, at T slices of one word and of all of T
+   and, where one block takes a whole row tile, through the split join
+   (inject also at the other items count, lut with the table on the other
+   route: staged in shared memory or read through L1); at border 8 each of
+   these is timed; and the op is within
    ``attn_fused.ref.flip_tolerance`` of the unfused seam composition
    (``fused_attention_reference``, torch.softmax); per case the kernel's,
    the op's, the plain version's and the unfused seam's ms, the bound, the
@@ -225,13 +227,15 @@ def host_ms(fn, arg_sets, reps: int) -> float:
 
 def call_times(fn, arg_sets, reps: int) -> dict:
     """``ms`` by CUDA events over ``reps`` calls and ``device_ms``; below 0.2
-    ms, where the host may hold the event time, ``ms`` over 200 calls and
-    ``host_ms`` beside them."""
+    ms, where the host may hold the event time, ``ms`` and ``host_ms`` each
+    the median of 5 windows of 200 calls (the host's clock, which the card's
+    machine shares, moves a lone window by tens of per cent)."""
     ms = time_ms(fn, arg_sets, reps)
     if ms >= 0.2:
         return dict(ms=ms, device_ms=device_ms(fn, arg_sets, reps))
-    return dict(ms=time_ms(fn, arg_sets, 200), device_ms=device_ms(fn, arg_sets, 50),
-                host_ms=host_ms(fn, arg_sets, 200))
+    return dict(ms=float(np.median([time_ms(fn, arg_sets, 200) for _ in range(5)])),
+                device_ms=device_ms(fn, arg_sets, 50),
+                host_ms=float(np.median([host_ms(fn, arg_sets, 200) for _ in range(5)])))
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
@@ -636,9 +640,9 @@ def ssd_inputs(device, gen, S, H, P, N, G, Q, carry=False) -> tuple:
 def time_kernels() -> dict:
     """Times (``call_times``) of the gather kernels (border 8, int16 table)
     at the gemma-2b and mamba2-370m rank-0 paths' shapes, of the low-rank
-    kernel, the replay kernel (border 8) and the fused attention inject
-    kernel (border 8: served decode and prefill, long decode and prefill)
-    at the gemma-2b path's shapes, and of the SSD scan at mamba2-370m's widths (S
+    kernel, the replay kernel (border 8) and the fused attention LUT and
+    inject kernels (border 8: served decode and prefill, long decode and
+    prefill) at the gemma-2b path's shapes, and of the SSD scan at mamba2-370m's widths (S
     = 16, 1024, 2048, split and full), from whichever ``repro_torch`` is
     first on sys.path: the same calls with the same seeded operands in this
     tree and in a parent's."""
@@ -656,7 +660,7 @@ def time_kernels() -> dict:
     from repro_torch.kernels.ssd_scan import kernel as skernel
 
     out: dict[str, dict] = {"lut": {}, "grouped": {}, "lowrank": {}, "replay": {},
-                            "attn_fused_inject": {}, "ssd": {}}
+                            "attn_fused_lut": {}, "attn_fused_inject": {}, "ssd": {}}
     table = ops.kernel_table(BORDER, device)
     for model, site, g, m, k, n, grouped_b in gather_shapes(gemma_2b.CONFIG, mamba2_370m.CONFIG):
         lead = (g,) if grouped_b else ()
@@ -685,27 +689,26 @@ def time_kernels() -> dict:
         args = [(inj, ia, idx((g, k, n) if grouped_b else (k, n))) for _ in range(n_copies)]
         out["replay"][str((g, m, k, n))] = call_times(rkernel.inject_replay_int32, args, 10)
     D = P = gemma_2b.CONFIG.head_dim
-    for label, (G, M, T) in (("served decode", (SLOTS, 8, CAPACITY)),
-                             ("served prefill", (1, 8 * PROMPT_LEN, PROMPT_LEN)),
-                             ("long decode", (SLOTS, 8, ATTN_CONTEXT)),
-                             ("long prefill", (1, 8 * ATTN_LONG_PREFILL["inject"],
-                                               ATTN_LONG_PREFILL["inject"]))):
-        if label.endswith("prefill"):
-            mask = _causal(1, 8, T, device)
-        else:
-            lens = torch.tensor([T - T // 8, T], device=device)
-            mask = (torch.arange(T, device=device) < lens[:, None, None]).int().expand(
-                G, M, T).contiguous()
-        args = (_int8((G, M, D), gen, device), _int8((G, D, T), gen, device),
-                _int8((G, T, P), gen, device),
-                torch.rand((G, M, 1), generator=gen, device=device) / 127,
-                torch.rand((G, 1, T), generator=gen, device=device) / 127,
-                torch.rand((G, 1, P), generator=gen, device=device) / 127, mask)
-
-        def fused(*a):
-            return akernel.attn_fused_inject(inj, *a, scale=D ** 0.5)
-
-        out["attn_fused_inject"][label] = call_times(fused, [args], _reps(fused, args))
+    fused = {"lut": lambda *a: akernel.attn_fused_lut(*a, table, scale=D ** 0.5),
+             "inject": lambda *a: akernel.attn_fused_inject(inj, *a, scale=D ** 0.5)}
+    for method, kern in fused.items():
+        for label, (G, M, T) in (("served decode", (SLOTS, 8, CAPACITY)),
+                                 ("served prefill", (1, 8 * PROMPT_LEN, PROMPT_LEN)),
+                                 ("long decode", (SLOTS, 8, ATTN_CONTEXT)),
+                                 ("long prefill", (1, 8 * ATTN_LONG_PREFILL[method],
+                                                   ATTN_LONG_PREFILL[method]))):
+            if label.endswith("prefill"):
+                mask = _causal(1, 8, T, device)
+            else:
+                lens = torch.tensor([T - T // 8, T], device=device)
+                mask = (torch.arange(T, device=device) < lens[:, None, None]).int().expand(
+                    G, M, T).contiguous()
+            args = (_int8((G, M, D), gen, device), _int8((G, D, T), gen, device),
+                    _int8((G, T, P), gen, device),
+                    torch.rand((G, M, 1), generator=gen, device=device) / 127,
+                    torch.rand((G, 1, T), generator=gen, device=device) / 127,
+                    torch.rand((G, 1, P), generator=gen, device=device) / 127, mask)
+            out[f"attn_fused_{method}"][label] = call_times(kern, [args], _reps(kern, args))
     H, P, N, G, Q = ssd_widths(mamba2_370m.CONFIG)
     for S in (PROMPT_LEN, SSD_LONG, SSD_CONTEXT):
         args = ssd_inputs(device, gen, S, H, P, N, G, Q)
@@ -716,8 +719,8 @@ def time_kernels() -> dict:
 
 
 def phase_ab(parent: Path) -> dict:
-    """The gather, low-rank, replay, fused inject and SSD kernels of this
-    tree against a parent tree's on one card: parent, change, change, parent, each a
+    """The gather, low-rank, replay, fused LUT and inject and SSD kernels of
+    this tree against a parent tree's on one card: parent, change, change, parent, each a
     process of its own that builds its tree's kernels (``--time-kernels``).
     Prints each shape's four times of each kind (event, device, and below
     0.2 ms host) and the parent / change ratio of the means."""
@@ -733,7 +736,8 @@ def phase_ab(parent: Path) -> dict:
         runs.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
         log(f"[ab] {label} run from {src} in {time.perf_counter() - t0:.1f}s")
     table = {}
-    for kind in ("lut", "grouped", "lowrank", "replay", "attn_fused_inject", "ssd"):
+    for kind in ("lut", "grouped", "lowrank", "replay", "attn_fused_lut", "attn_fused_inject",
+                 "ssd"):
         for key, times in runs[1][1][kind].items():
             for what in times:
                 parent_ms = [r[kind].get(key, {}).get(what) for lab, r in runs if lab == "parent"]
@@ -865,8 +869,9 @@ def _row_tiles(M: int, default: int) -> list[int]:
 
 def phase_attn_fused(device, cases: dict, int_rate: float) -> tuple[list, dict]:
     """Both fused attention kernels at every case: bit for bit against their
-    plain versions at three row tiles (inject also at two other T splits),
-    one launch of its kernel per op call,
+    plain versions at three row tiles and under other plans (T splits, the
+    split join in place of a whole block; inject the other items count, lut
+    the other table route), one launch of its kernel per op call,
     within the flip tolerance of the unfused seam composition; times and
     bounds.  Returns the rows and the launch counts of the op's call at the
     long-decode case, border 8."""
@@ -922,8 +927,8 @@ def phase_attn_fused(device, cases: dict, int_rate: float) -> tuple[list, dict]:
                 args = (q8, k8, v8, sq, sk, sv, mask)
                 want = plain(*args)
                 default = akernel.default_row_tile(G, M, method, T, sms)
-                tile_ms = {}  # inject at border 8: ms of each row tile
-                timed = method == "inject" and border == BORDER and handle is None
+                tile_ms = {}  # at border 8: ms of each row tile
+                timed = border == BORDER and handle is None
                 for bm in _row_tiles(M, default):
                     got = kern(*args, bm=bm)
                     torch.cuda.synchronize()
@@ -933,15 +938,16 @@ def phase_attn_fused(device, cases: dict, int_rate: float) -> tuple[list, dict]:
                             f"differs from plain by {float((got - want).abs().max())}")
                     if timed:
                         tile_ms[bm] = time_ms(lambda *a, bm=bm: kern(*a, bm=bm), [args], 5)
-                plan, variants = None, {}
+                # other plans, bit for bit too and timed at border 8.  inject: the
+                # other T splits (one word a slice, one slice), the other items
+                # count and, with one slice, the split join instead of a whole
+                # block; lut: the same T splits and join, and the table staged
+                # in shared memory instead of read through L1 (or the reverse)
+                n_words = math.ceil(T / 32)
                 if method == "inject":
-                    # the other T splits (one word a slice, one slice), the other
-                    # items count and, with one slice, the split join instead of a
-                    # whole block: bit for bit too, and timed at border 8
                     prog = rkernel.program_tensors(inj, device)[0]
                     plan = akernel.inject_launch_plan(G, M, D, T, P, default, sms, prog.n_slots,
                                                       prog.n_opbits, prog.ops.shape[0])
-                    n_words = math.ceil(T / 32)
                     others = {f"slice_words={w}": plan._replace(
                         slice_words=w, slices=math.ceil(n_words / w), whole=False)
                         for w in sorted({1, n_words} - {plan.slice_words})}
@@ -949,18 +955,43 @@ def phase_attn_fused(device, cases: dict, int_rate: float) -> tuple[list, dict]:
                         items=rkernel.ITEMS + 1 - plan.items)
                     if plan.whole:
                         others["whole=False"] = plan._replace(whole=False)
-                    for name, other in others.items():
-                        got = akernel.attn_fused_inject_with_plan(inj, *args, scale=scale,
-                                                                  plan=other)
-                        torch.cuda.synchronize()
-                        if not torch.equal(got, want):
-                            raise AssertionError(
-                                f"attn_fused inject {label} border {border}, {name}: kernel "
-                                f"differs from plain by {float((got - want).abs().max())}")
-                        if timed:
-                            variants[name] = time_ms(
-                                lambda *a, other=other: akernel.attn_fused_inject_with_plan(
-                                    inj, *a, scale=scale, plan=other), [args], 5)
+
+                    def with_plan(*a, plan):
+                        return akernel.attn_fused_inject_with_plan(inj, *a, scale=scale, plan=plan)
+                else:
+                    plan = akernel.lut_attn_launch_plan(G, M, D, T, P, default, sms,
+                                                        table.dtype == torch.int16)
+
+                    def variant(**change):
+                        return akernel.lut_attn_plan(G, M, D, T, P, default, sms, **{
+                            "slice_words": plan.slice_words, "staged": plan.staged,
+                            "whole": plan.whole, **change})
+
+                    others = {f"slice_words={w}": variant(slice_words=w, whole=False)
+                              for w in sorted({1, n_words} - {plan.slice_words})}
+                    if plan.slices == 1:  # the split join in place of a whole tile, or the reverse
+                        flip = variant(whole=not plan.whole)
+                        if flip.smem <= akernel.SMEM_LIMIT:
+                            others[f"whole={flip.whole}"] = flip
+                    if table.dtype == torch.int16:
+                        flip = variant(staged=not plan.staged)
+                        if flip.smem > akernel.SMEM_LIMIT:
+                            flip = variant(staged=not plan.staged, whole=False)
+                        others[f"staged={flip.staged}, whole={flip.whole}"] = flip
+
+                    def with_plan(*a, plan):
+                        return akernel.attn_fused_lut_with_plan(*a, table, scale=scale, plan=plan)
+                variants = {}
+                for name, other in others.items():
+                    got = with_plan(*args, plan=other)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"attn_fused {method} {label} border {border}, {name}: kernel "
+                            f"differs from plain by {float((got - want).abs().max())}")
+                    if timed:
+                        variants[name] = time_ms(lambda *a, other=other: with_plan(
+                            *a, plan=other), [args], 5)
                 for k_ in akernel.KERNELS:
                     k_.launches = 0
                 out = aops.fused_attention(q, kt, v, mask, **kw)
@@ -1012,9 +1043,7 @@ def phase_attn_fused(device, cases: dict, int_rate: float) -> tuple[list, dict]:
                 rows.append(dict(
                     method=method, case=label, border=border, schedule=handle or "default",
                     shape=(G, M, D, T, P), bm=default,
-                    t_split=None if plan is None else dict(
-                        slice_words=plan.slice_words, slices=plan.slices, items=plan.items,
-                        whole=plan.whole, blocks=plan.blocks),
+                    t_split=plan._asdict(),
                     row_tile_ms=tile_ms or None, other_plan_ms=variants or None,
                     max_abs_err=float((out - want).abs().max()),
                     gap_to_seam=gap,
@@ -1226,8 +1255,8 @@ def profile_serve(device, card: str, cfg, params, prompts, gen: int) -> None:
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", type=Path, default=None,
-                        help="a parent tree of the repo (git archive): time its low-rank, replay "
-                             "and fused inject kernels against this tree's in this call")
+                        help="a parent tree of the repo (git archive): time its kernels against "
+                             "this tree's in this call")
     parser.add_argument("--time-kernels", type=Path, default=None, metavar="SRC",
                         help=argparse.SUPPRESS)  # one timing process of --parent's A/B
     args = parser.parse_args(argv)

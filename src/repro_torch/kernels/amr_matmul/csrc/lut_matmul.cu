@@ -34,7 +34,9 @@
 //   a k for all RT rows, so a gather is one add and one shared load; up to
 //   RT = 4 the sums take two gathers an add (a three-input add).  The
 //   k-lanes' sums meet by shared-memory atomics (column-planar, so a warp's
-//   32 adds hit 32 banks).
+//   32 adds hit 32 banks).  A group of 4 k's gathers (gather_group) and
+//   their helpers are lut_gather.cuh's, shared with the fused attention
+//   LUT kernel.
 // * Persistent blocks.  The grid is min(tiles, the blocks that fit on the
 //   card); a block walks over tiles.  The launch plan (kernel.py,
 //   lut_launch_plan) picks RT, cg and k_chunk from a cost model of rounds x
@@ -78,10 +80,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lut_gather.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kTableBytes16 = 256 * 256 * 2;  // the int16 table, staged
 constexpr int kAEntries = 16384;              // staged A: RT x k_chunk row addresses at most
 constexpr int kMaxCg = 128;                   // column groups of 4 a block
 
@@ -97,12 +100,6 @@ struct Params {
   bool vec_a, vec_b;   // A and b rows read as aligned 4-byte words
 };
 
-__device__ __forceinline__ uint32_t load_stream(const int8_t* p) {
-  uint32_t v;
-  asm("ld.global.nc.L1::no_allocate.b32 %0, [%1];" : "=r"(v) : "l"(p));
-  return v;
-}
-
 // b rows k .. k + 3 of the tile at this thread's 4 columns (bcol: the
 // tile's first row at them), each row as a word of 4 bytes; 0 past the
 // tile's kw rows or N.  full: the 4 columns lie in N and b rows are words.
@@ -111,7 +108,7 @@ __device__ __forceinline__ void load_b(const Params& p, const int8_t* bcol, int 
   const int8_t* row = bcol + size_t(k) * p.N;
   if (full && k + 3 < kw) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) w[i] = load_stream(row + size_t(i) * p.N);
+    for (int i = 0; i < 4; ++i) w[i] = gather::load_stream(row + size_t(i) * p.N);
     return;
   }
 #pragma unroll
@@ -119,97 +116,11 @@ __device__ __forceinline__ void load_b(const Params& p, const int8_t* bcol, int 
     w[i] = 0u;
     if (k + i < kw && n0 < p.N) {
       if (full) {
-        w[i] = load_stream(row);
+        w[i] = gather::load_stream(row);
       } else {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           if (n0 + c < p.N) w[i] |= uint32_t(uint8_t(__ldg(row + c))) << (8 * c);
-        }
-      }
-    }
-  }
-}
-
-// Byte i of a word, zero-extended.
-__device__ __forceinline__ int byte_of(uint32_t w, int i) {
-  return int(__byte_perm(w, 0u, 0x4440u | uint32_t(i)));
-}
-
-// A table entry: from shared memory at a byte address (row address + 2 col),
-// or through L1 at an element index (256 row + col).
-template <typename T, bool STAGED>
-__device__ __forceinline__ int gather(const T* tab, uint32_t row, uint32_t col) {
-  if constexpr (STAGED) {
-    int v;
-    asm volatile("ld.shared.s16 %0, [%1];" : "=r"(v) : "r"(row + col));
-    return v;
-  } else {
-    return int(__ldg(tab + (row + col)));
-  }
-}
-
-// How A is staged: up to 4 rows a tile, as each k's table-row address (a
-// row then costs no extraction, which matters where integer issue bounds
-// the kernel, at M = 2); above, as the row bytes, 4 k a word (16 rows of
-// addresses take the registers that the 64 sums need, and there shared
-// memory bounds the kernel).
-template <int RT>
-constexpr bool kRowAddr = RT <= 4;
-
-// One group of 4 k (kv of them valid; all 4 when FULL, with no test a k).
-// s_a: the group's A in row 0, rows a_stride words apart: 4 row addresses
-// a row (kRowAddr), or one word of 4 row bytes (+ 128) a row.  bw: the b
-// words (row i of the group in word i, column c in byte c).  A column's
-// offset is taken once a k for the RT rows and a gather is one add and one
-// load.  With row addresses the k go in pairs and the sums take two
-// gathers an add.
-template <typename T, int RT, bool STAGED, bool FULL>
-__device__ __forceinline__ void gather_group(const T* tab, const uint32_t* s_a, int a_stride,
-                                             uint32_t row_base, int kv, const uint32_t bw[4],
-                                             int (&acc)[RT][4]) {
-  constexpr int kColShift = STAGED ? 1 : 0;  // a column: 2 bytes, or 1 entry
-  constexpr int kRowShift = STAGED ? 9 : 8;  // a row: 512 bytes, or 256 entries
-  if constexpr (kRowAddr<RT>) {
-#pragma unroll
-    for (int i0 = 0; i0 < 4; i0 += 2) {
-      if (!FULL && i0 >= kv) break;
-      uint32_t col[2][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint32_t bx = bw[i0 + h] ^ 0x80808080u;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) col[h][c] = uint32_t(byte_of(bx, c)) << kColShift;
-      }
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const uint2 row = *reinterpret_cast<const uint2*>(s_a + r * a_stride + i0);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if (FULL || i0 + 1 < kv) {
-            acc[r][c] += gather<T, STAGED>(tab, row.x, col[0][c]) +
-                         gather<T, STAGED>(tab, row.y, col[1][c]);
-          } else {
-            acc[r][c] += gather<T, STAGED>(tab, row.x, col[0][c]);
-          }
-        }
-      }
-    }
-  } else {
-    uint32_t aw[RT];
-#pragma unroll
-    for (int r = 0; r < RT; ++r) aw[r] = s_a[r * a_stride];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (FULL || i < kv) {
-        const uint32_t bx = bw[i] ^ 0x80808080u;
-        uint32_t col[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) col[c] = uint32_t(byte_of(bx, c)) << kColShift;
-#pragma unroll
-        for (int r = 0; r < RT; ++r) {
-          const uint32_t row = row_base + (uint32_t(byte_of(aw[r], i)) << kRowShift);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] += gather<T, STAGED>(tab, row, col[c]);
         }
       }
     }
@@ -228,9 +139,9 @@ __global__ void __launch_bounds__(kThreads, 1) amr_lut_kernel(const Params p) {
   if constexpr (STAGED) {
     const int4* src = static_cast<const int4*>(p.table);
 #pragma unroll 4
-    for (int i = tid; i < kTableBytes16 / 16; i += kThreads) smem4[i] = __ldg(src + i);
+    for (int i = tid; i < gather::kTableBytes16 / 16; i += kThreads) smem4[i] = __ldg(src + i);
     tab = reinterpret_cast<const T*>(smem);
-    s_out = reinterpret_cast<int32_t*>(smem + kTableBytes16);
+    s_out = reinterpret_cast<int32_t*>(smem + gather::kTableBytes16);
   } else {
     tab = static_cast<const T*>(p.table);
     s_out = reinterpret_cast<int32_t*>(smem);
@@ -240,7 +151,7 @@ __global__ void __launch_bounds__(kThreads, 1) amr_lut_kernel(const Params p) {
   // entry index
   uint32_t* s_a = reinterpret_cast<uint32_t*>(s_out + RT * BN);
   const int groups_cap = p.k_chunk / 4;
-  const int a_stride = kRowAddr<RT> ? p.k_chunk : groups_cap;
+  const int a_stride = gather::kRowAddr<RT> ? p.k_chunk : groups_cap;
   const uint32_t row_base = STAGED ? static_cast<uint32_t>(__cvta_generic_to_shared(smem)) : 0u;
   constexpr int kRowShift = STAGED ? 9 : 8;  // a table row: 512 bytes, or 256 entries
   for (int i = tid; i < RT * BN; i += kThreads) s_out[i] = 0;
@@ -288,12 +199,12 @@ __global__ void __launch_bounds__(kThreads, 1) amr_lut_kernel(const Params p) {
           }
         }
         v ^= 0x80808080u;  // each byte a table row: a + 128
-        if constexpr (kRowAddr<RT>) {
+        if constexpr (gather::kRowAddr<RT>) {
           reinterpret_cast<uint4*>(s_a)[i] =
-              make_uint4(row_base + (uint32_t(byte_of(v, 0)) << kRowShift),
-                         row_base + (uint32_t(byte_of(v, 1)) << kRowShift),
-                         row_base + (uint32_t(byte_of(v, 2)) << kRowShift),
-                         row_base + (uint32_t(byte_of(v, 3)) << kRowShift));
+              make_uint4(row_base + (uint32_t(gather::byte_of(v, 0)) << kRowShift),
+                         row_base + (uint32_t(gather::byte_of(v, 1)) << kRowShift),
+                         row_base + (uint32_t(gather::byte_of(v, 2)) << kRowShift),
+                         row_base + (uint32_t(gather::byte_of(v, 3)) << kRowShift));
         } else {
           s_a[i] = v;
         }
@@ -311,11 +222,11 @@ __global__ void __launch_bounds__(kThreads, 1) amr_lut_kernel(const Params p) {
       uint32_t nb[4];  // the next group's b
       load_b(p, bcol, 4 * (j + lanes), kw, n0, full, nb);
       const int kv = kw - 4 * j;
-      const uint32_t* s_aj = s_a + (kRowAddr<RT> ? 4 * j : j);
+      const uint32_t* s_aj = s_a + (gather::kRowAddr<RT> ? 4 * j : j);
       if (kv >= 4) {
-        gather_group<T, RT, STAGED, true>(tab, s_aj, a_stride, row_base, kv, bw, acc);
+        gather::gather_group<T, RT, STAGED, true>(tab, s_aj, a_stride, row_base, kv, bw, acc);
       } else {
-        gather_group<T, RT, STAGED, false>(tab, s_aj, a_stride, row_base, kv, bw, acc);
+        gather::gather_group<T, RT, STAGED, false>(tab, s_aj, a_stride, row_base, kv, bw, acc);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) bw[i] = nb[i];
@@ -367,7 +278,7 @@ __global__ void __launch_bounds__(kThreads, 1) amr_lut_kernel(const Params p) {
 }
 
 constexpr int max_smem(int RT, bool staged) {
-  return (staged ? kTableBytes16 : 0) + RT * 4 * kMaxCg * 4 + 4 * kAEntries;
+  return (staged ? gather::kTableBytes16 : 0) + RT * 4 * kMaxCg * 4 + 4 * kAEntries;
 }
 
 template <typename T, int RT, bool STAGED>
@@ -396,7 +307,7 @@ int launch(const Params& p, cudaStream_t stream) {
     cap[device] = fit * sms;
     configured |= uint64_t(1) << device;
   }
-  const size_t smem = size_t(STAGED ? kTableBytes16 : 0) + size_t(RT) * 4 * p.cg * 4 +
+  const size_t smem = size_t(STAGED ? gather::kTableBytes16 : 0) + size_t(RT) * 4 * p.cg * 4 +
                       size_t(RT) * p.k_chunk * 4;
   const int grid = p.n_tiles < cap[device] ? p.n_tiles : cap[device];
   amr_lut_kernel<T, RT, STAGED><<<grid, kThreads, smem, stream>>>(p);

@@ -20,8 +20,9 @@ in the kernel (through per-stream counters and, for the gather kernels, a
 per-stream accumulator, all of which the kernels leave zero), with no
 zero-fill before it.
 
-The two gather kernels are one CUDA body (``csrc/lut_matmul.cu``): tiles
-of RT rows x 4 cg columns x k_chunk of K, 512 threads a block, persistent
+The two gather kernels are one CUDA body (``csrc/lut_matmul.cu``, its
+tile loop in ``csrc/lut_gather.cuh``, which the fused attention LUT kernel
+also runs): tiles of RT rows x 4 cg columns x k_chunk of K, 512 threads a block, persistent
 blocks, the int16 table staged in shared memory where the work pays for
 it (``lut_launch_plan``).  Its bound: a gather and an add a product, and
 the operands' bytes (0.0101 ms at (2, 2048, 16384)).  Measured by
@@ -43,7 +44,8 @@ from ..build import CudaKernel, CudaLibrary
 from .ref import lowrank_matmul_ref, lut_matmul_ref
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-LUT_LIBRARY = CudaLibrary(_CSRC / "lut_matmul.cu")
+GATHER_HEADER = _CSRC / "lut_gather.cuh"  # the gather's tile loop, shared with attn_fused
+LUT_LIBRARY = CudaLibrary(_CSRC / "lut_matmul.cu", (GATHER_HEADER,))
 LOWRANK_LIBRARY = CudaLibrary(_CSRC / "lowrank_matmul.cu")
 LIBRARIES = (LUT_LIBRARY, LOWRANK_LIBRARY)
 

@@ -151,7 +151,7 @@ __global__ void __launch_bounds__(kThreads, 1) attn_fused_inject_kernel(const Pa
     // softmax and re-quantization of the whole rows, one warp a row
     __syncthreads();
     for (int r = tid >> 5; r < p.bm; r += kThreads / 32) {
-      const float scale = attn::softmax_requant_row(scores + size_t(r) * ld, p.T);
+      const float scale = attn::softmax_requant_row<1>(scores + size_t(r) * ld, p.T);
       if ((tid & 31) == 0) row_ps[r] = scale;
     }
     __syncthreads();

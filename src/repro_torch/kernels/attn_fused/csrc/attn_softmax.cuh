@@ -22,6 +22,9 @@
 //   ps   = max(amax, 1e-8) / 127,  amax = fl(1 / sum)
 //   q    = clip(rint(p / ps), -128, 127)
 //
+// The pieces (row_max, row_exp_sum, prob_scale, prob_index) also serve a
+// kernel that splits the steps over blocks: each step keeps its order.
+//
 // amax, the row's largest probability, is fl(1 / sum) exactly: the largest
 // score gives e = expf(0) = 1, and a correctly rounded division is monotone,
 // so no other e / sum rounds above 1 / sum.  (A fully masked row has every
@@ -42,31 +45,89 @@ __device__ __forceinline__ float masked_score(int32_t acc, float sq, float sk, f
   return keep != 0 ? s : kNegInf;
 }
 
+// e = exp(s - mx), the accurate expf
+__device__ __forceinline__ float row_exp(float s, float mx) {
+  const float e = expf(__fsub_rn(s, mx));
+  return e;
+}
+
+// A warp's 32 lane sums joined by the butterfly: every lane gets the row sum.
+__device__ __forceinline__ float warp_sum(float sum) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sum = __fadd_rn(sum, __shfl_xor_sync(0xFFFFFFFFu, sum, o));
+  return sum;
+}
+
+// The row's probability scale ps from its sum (amax = fl(1 / sum)).
+__device__ __forceinline__ float prob_scale(float sum) {
+  const float amax = __fdiv_rn(1.0f, sum);
+  return __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f);
+}
+
+// A probability's operand index q + 128 from its e, the row sum and ps.
+__device__ __forceinline__ int32_t prob_index(float e, float sum, float ps) {
+  const float p = __fdiv_rn(e, sum);
+  const float q = fminf(fmaxf(rintf(__fdiv_rn(p, ps)), -128.0f), 127.0f);
+  return int32_t(q) + 128;
+}
+
+constexpr int kBatch = 16;  // a lane's loads in flight on a row in L2
+
+// use(t, s[t]) for this lane's columns t = lane, lane + 32, ... < T in
+// increasing order, B loads at a time: kBatch for a row another block
+// wrote (a split tail), read through L2 (__ldcg), never L1; 1 for a row in
+// shared memory (the batched loop cost the fused inject kernel's
+// whole-tile blocks 1.5% at the served shapes on an H100, PERF.md).
+template <int B, typename Use>
+__device__ __forceinline__ void lane_columns(const float* s, int T, Use use) {
+  int t = threadIdx.x & 31;
+  if constexpr (B > 1) {
+    for (; t + 32 * (B - 1) < T; t += 32 * B) {
+      float x[B];
+#pragma unroll
+      for (int i = 0; i < B; ++i) x[i] = __ldcg(s + t + 32 * i);
+#pragma unroll
+      for (int i = 0; i < B; ++i) use(t + 32 * i, x[i]);
+    }
+    for (; t < T; t += 32) use(t, __ldcg(s + t));
+  } else {
+    for (; t < T; t += 32) use(t, s[t]);
+  }
+}
+
+// One warp, one row of T masked scores: their max (exact in any order).
+template <int B>
+__device__ __forceinline__ float row_max(const float* s, int T) {
+  float mx = __int_as_float(int(0xff800000u));  // -inf
+  lane_columns<B>(s, T, [&](int, float x) { mx = fmaxf(mx, x); });
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, o));
+  return mx;
+}
+
+// One warp, one row: the sum of e = row_exp(s, mx) in the fixed order
+// (STORE: e written over s).
+template <bool STORE, int B>
+__device__ __forceinline__ float row_exp_sum(float* s, int T, float mx) {
+  float sum = 0.0f;
+  lane_columns<B>(s, T, [&](int t, float x) {
+    const float e = row_exp(x, mx);
+    if constexpr (STORE) s[t] = e;
+    sum = __fadd_rn(sum, e);
+  });
+  return warp_sum(sum);
+}
+
 // One warp, one row: s[0, T) holds the row's masked scores; afterwards
 // s[t] holds, as an int, the probability's operand index q + 128.
 // Returns the row's probability scale ps.
+template <int B>
 __device__ __forceinline__ float softmax_requant_row(float* s, int T) {
-  const int lane = threadIdx.x & 31;
-  float mx = __int_as_float(int(0xff800000u));  // -inf
-  for (int t = lane; t < T; t += 32) mx = fmaxf(mx, s[t]);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, o));
-  float sum = 0.0f;
-  for (int t = lane; t < T; t += 32) {
-    const float e = expf(__fsub_rn(s[t], mx));
-    s[t] = e;
-    sum = __fadd_rn(sum, e);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) sum = __fadd_rn(sum, __shfl_xor_sync(0xFFFFFFFFu, sum, o));
-  const float amax = __fdiv_rn(1.0f, sum);
-  const float ps = __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f);
+  const float mx = row_max<B>(s, T);
+  const float sum = row_exp_sum<true, B>(s, T, mx);
+  const float ps = prob_scale(sum);
   int32_t* idx = reinterpret_cast<int32_t*>(s);
-  for (int t = lane; t < T; t += 32) {
-    const float p = __fdiv_rn(s[t], sum);
-    const float q = fminf(fmaxf(rintf(__fdiv_rn(p, ps)), -128.0f), 127.0f);
-    idx[t] = int32_t(q) + 128;
-  }
+  lane_columns<B>(s, T, [&](int t, float e) { idx[t] = prob_index(e, sum, ps); });
   return ps;
 }
 

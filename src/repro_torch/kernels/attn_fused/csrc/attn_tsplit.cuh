@@ -1,19 +1,22 @@
 // The T split of the fused AMR attention kernels: the key axis T of a row
 // tile cut into slices of whole 32-column words, each slice a block of its
-// own, joined inside one launch.  attn_fused_inject.cu runs on it; the LUT
-// kernel (attn_fused_lut.cu) can take the same join.
+// own, joined inside one launch.  attn_fused_inject.cu and attn_fused_lut.cu
+// run on it.
 //
 // A launch runs two kinds of work item, by ticket (take_ticket): first
 // every QK^T item (group, row tile, slice), then every PV item.  Per row
 // tile (tile = g * (M / bm) + row tile):
 //   * each QK^T item writes its slice's masked float32 scores into a score
 //     scratch of G x M rows (row stride a multiple of 32 floats, so every
-//     128-byte line has one writer) and counts itself done (scores_done);
-//     the last one of the tile runs attn_softmax.cuh's softmax_requant_row
-//     over each whole row, one warp a row, reading the row from L2 (the
-//     lane order of its float sum depends on T alone, so the bits are the
-//     plain version's whatever the slicing), writes the probability indices
-//     over the scores and the row scale ps, and marks the tile ready;
+//     128-byte line has one writer) and counts itself done (scores_met);
+//     the last one of the tile runs its rows' softmax steps, one warp a
+//     row, reading the rows from L2 (the lane order of a row's float sum
+//     depends on T alone, so the bits are the plain version's whatever the
+//     slicing), and marks the tile ready (mark_ready).  scores_done runs
+//     attn_softmax.cuh's softmax_requant_row there: the probability indices
+//     over the scores and the row scale ps.  (The LUT kernel writes only
+//     each row's max, sum and ps there, and its PV items re-quantize their
+//     own slices.)
 //   * each PV item waits until its tile is ready (wait_ready), adds its
 //     slice's int32 sums into an accumulator (G, M, P) by atomics (exact
 //     modulo 2**32 in any order) and counts itself done (pv_done); the last
@@ -29,7 +32,8 @@
 // stream):
 //   state  int32, zero between calls: [0] the ticket, then per tile
 //          [qk done, ready, pv done], then the accumulator (G, M, P);
-//   scores float32 (G, M, ld) then ps (G, M).
+//   scores float32 (G, M, ld) then ps (G, M) (the LUT kernel: then each
+//          row's max and sum, (G, M) each).
 // Data another block wrote is read through L2 (__ldcg), never L1.
 #pragma once
 
@@ -65,29 +69,41 @@ __device__ __forceinline__ int take_ticket(int* counter, int total) {
   return s_ticket;
 }
 
-// After a QK^T item has written its scores: count it; the tile's last item
-// re-quantizes every row of the tile (rows rows from `scores`, stride ld,
-// T scores each; ps[r] their scales) and marks the tile ready.
-template <int kThreads>
-__device__ __forceinline__ void scores_done(int* tile_words, int slices, float* scores, int ld,
-                                            int rows, int T, float* ps) {
+// After a QK^T item has written its scores: count it.  True, in every
+// thread, in the tile's last item, which then sees every item's scores.
+__device__ __forceinline__ bool scores_met(int* tile_words, int slices) {
   __shared__ int s_last;
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) s_last = atomicAdd(tile_words, 1) == slices - 1;
   __syncthreads();
-  if (!s_last) return;
+  if (!s_last) return false;
   __threadfence();
-  for (int r = threadIdx.x >> 5; r < rows; r += kThreads / 32) {
-    const float scale = attn::softmax_requant_row(scores + size_t(r) * ld, T);
-    if ((threadIdx.x & 31) == 0) ps[r] = scale;
-  }
+  return true;
+}
+
+// The tile's last QK^T item, its rows' work written: the tile is ready.
+__device__ __forceinline__ void mark_ready(int* tile_words) {
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
     tile_words[0] = 0;
     st_release(tile_words + 1, 1);
   }
+}
+
+// After a QK^T item has written its scores: count it; the tile's last item
+// re-quantizes every row of the tile (rows rows from `scores`, stride ld,
+// T scores each; ps[r] their scales) and marks the tile ready.
+template <int kThreads>
+__device__ __forceinline__ void scores_done(int* tile_words, int slices, float* scores, int ld,
+                                            int rows, int T, float* ps) {
+  if (!scores_met(tile_words, slices)) return;
+  for (int r = threadIdx.x >> 5; r < rows; r += kThreads / 32) {
+    const float scale = attn::softmax_requant_row<attn::kBatch>(scores + size_t(r) * ld, T);
+    if ((threadIdx.x & 31) == 0) ps[r] = scale;
+  }
+  mark_ready(tile_words);
 }
 
 // Before a PV item reads the probability indices: wait until the tile is ready.

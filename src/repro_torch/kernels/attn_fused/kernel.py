@@ -16,15 +16,18 @@ scales the op makes (``ops.quantize_operands``) and return (G, M, P)
 float32, bit for bit their plain versions in ``ref.py``.
 
 A tensor's device decides the route: CPU tensors go to the plain versions;
-CUDA tensors go to the kernel, which raises on what it does not take.  The
-LUT kernel's block holds the scores of its rows (4 T bytes a row) in shared
-memory, so it takes T up to about 57,000.  The inject kernel splits T over
-blocks (``csrc/attn_tsplit.cuh``, ``inject_launch_plan``): its scores go to
-a per-stream scratch in device memory and its PV sums meet in a per-stream
-accumulator that the kernel leaves zero, so it takes any T and a call is
-one launch.  Each wrapper checks device, dtype, shape and contiguity,
-allocates the output, launches on PyTorch's current stream and counts the
-launch on its ``CudaKernel`` (``LUT``, ``INJECT``).
+CUDA tensors go to the kernel, which raises on what it does not take.
+Both kernels split T over blocks (``csrc/attn_tsplit.cuh``;
+``lut_attn_launch_plan``, ``inject_launch_plan``): their scores go to a
+per-stream scratch in device memory and their PV sums meet in a per-stream
+accumulator that the kernels leave zero, so they take any T and a call is
+one launch; where T is one slice (for lut, and the row tiles fit one
+wave), a block takes its row tile whole, scores in shared memory.  The
+LUT kernel runs both products on the gather matmul's tile loop
+(``amr_matmul/csrc/lut_gather.cuh``), with the int16 table staged in shared memory
+where the call has enough products.  Each wrapper checks device, dtype,
+shape and contiguity, allocates the output, launches on PyTorch's current
+stream and counts the launch on its ``CudaKernel`` (``LUT``, ``INJECT``).
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ import torch
 
 from repro_torch.core.engine import CompiledInjector
 
-from ..amr_matmul.kernel import _check_cuda, _check_table, _route, _sm_count, _stream, _zeros
+from ..amr_matmul import kernel as mkernel
+from ..amr_matmul.kernel import _check_cuda, _check_table, _pow2_at_least, _route, _sm_count, _zeros
 from ..build import CudaKernel, CudaLibrary
 from ..inject_replay import kernel as rkernel
 from .ref import attn_fused_inject_ref, attn_fused_lut_ref
@@ -46,14 +50,15 @@ from .ref import attn_fused_inject_ref, attn_fused_lut_ref
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOFTMAX = _CSRC / "attn_softmax.cuh"
 TSPLIT_HEADER = _CSRC / "attn_tsplit.cuh"  # the T split's join, for any fused kernel
-LUT_LIBRARY = CudaLibrary(_CSRC / "attn_fused_lut.cu", (_SOFTMAX,))
+LUT_LIBRARY = CudaLibrary(_CSRC / "attn_fused_lut.cu",
+                          (_SOFTMAX, TSPLIT_HEADER, mkernel.GATHER_HEADER))
 INJECT_LIBRARY = CudaLibrary(_CSRC / "attn_fused_inject.cu",
                              (_SOFTMAX, TSPLIT_HEADER, rkernel.DEVICE_HEADER), rkernel.DEFINES)
 LIBRARIES = (LUT_LIBRARY, INJECT_LIBRARY)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LUT = CudaKernel("attn_fused_lut", LUT_LIBRARY, "attn_fused_lut",
-                 [_P] * 8 + [_I, _P, _F] + [_I] * 7 + [_P])
+                 [_P] * 8 + [_I] + [_P] * 3 + [_F] + [_I] * 13 + [_P])
 INJECT = CudaKernel("attn_fused_inject", INJECT_LIBRARY, "attn_fused_inject",
                     [_P] * 11 + [_I, _P, _P] + [_I] * 3 + [_F] + [_I] * 13 + [_P])
 KERNELS = (LUT, INJECT)
@@ -61,31 +66,119 @@ KERNELS = (LUT, INJECT)
 MAX_ROWS = 16                 # kMaxRows: rows of a sub-tile (lut); rows of a replay tile
 SMEM_LIMIT = 232448           # shared memory a block may use on Hopper (227 KB)
 SM_SMEM = 233472              # shared memory of an SM (228 KB), 1 KB of it reserved a block
-_SMEM_TARGET = 96 * 1024      # a sub-tile's share, so that two blocks fit an SM
-_LUT_TILE_BLOCKS = 256        # blocks the LUT kernel's default row tile keeps in flight
+LUT_MAX_CG = 64               # kMaxCg: column groups of 4 of a product's tile
+LUT_A_WORDS = 2048            # kAWords: the staged A's words
+_LUT_QK_CG = 32               # a QK^T tile's 128 columns: the mask skips whole tiles
 _INJECT_MAX_PER_SM = 4        # inject blocks an SM holds at most (registers)
 INJECT_MAX_ROWS = 8           # rows of an inject row tile: more leave a block fewer k-lanes
 TILE_WORDS = 3                # tsplit::kTileWords: counters of a row tile
 
 
-def default_row_tile(G: int, M: int, method: str, T: int = 0, sms: int = 0) -> int:
-    """Rows a block takes, a divisor of M up to 16.  lut: the largest that
-    leaves at least 256 blocks of G * M / bm, else 1 (a long prefill fills
-    the card with blocks of several rows, a decode takes one row a block).
-    inject (T and the card's SM count ``sms`` required): T is split over
-    blocks, so the largest up to 8 whose row tiles, cut into slices of one
-    32-column word, give at least ``sms`` items (each row tile packs K^T and
-    V once for all its rows; 16 rows leave a block half the k-lanes of 8,
-    and chip_smoke's phase 4 times the row tiles), else 1 (a short cache
-    spreads its rows instead)."""
-    if method == "inject" and (T < 1 or sms < 1):
-        raise ValueError(f"the inject row tile depends on T and the SM count, got {T}, {sms}")
-    items = math.ceil(T / 32) if method == "inject" else 1
-    need = sms if method == "inject" else _LUT_TILE_BLOCKS
+@lru_cache(maxsize=256)
+def default_row_tile(G: int, M: int, method: str, T: int, sms: int) -> int:
+    """Rows a row tile takes, a divisor of M.  T is split over blocks, so
+    the largest up to 16 (lut) or 8 (inject) whose row tiles, cut into
+    slices of one 32-column word, give at least ``sms`` (the card's SM
+    count) items, else 1 (a short cache spreads its rows instead).  A row
+    tile reads K^T and V once for all its rows: lut gathers a column
+    offset for 16 rows at once; inject packs K^T and V once a tile, but 16
+    rows leave its block half the k-lanes of 8 (chip_smoke's phase 4 times
+    the row tiles of both)."""
+    if T < 1 or sms < 1:
+        raise ValueError(f"the row tile depends on T and the SM count, got {T}, {sms}")
     for bm in range(min(INJECT_MAX_ROWS if method == "inject" else MAX_ROWS, M), 0, -1):
-        if M % bm == 0 and G * (M // bm) * items >= need:
+        if M % bm == 0 and G * (M // bm) * math.ceil(T / 32) >= sms:
             return bm
     return 1
+
+
+class LutAttnPlan(NamedTuple):
+    """A launch of the fused LUT kernel: rows a tile and a sub-tile (the
+    kernel's RT), the T slice in 32-column words and the slices, the column
+    groups of 4 of a QK^T tile and of a PV tile, whether the int16 table is
+    staged in shared memory, whether a block takes a whole row tile (one
+    slice: scores in shared memory, no hand-off), the blocks (one a row tile
+    when whole, else persistent, at most one an SM), a block's shared memory
+    in bytes, and the int32 state (zero between calls) and float32 score
+    scratch the launch takes, in words (none when whole; the scratch holds
+    the scores, then each row's ps, max and sum)."""
+    bm: int
+    rt: int
+    slice_words: int
+    slices: int
+    qk_cg: int
+    pv_cg: int
+    staged: bool
+    whole: bool
+    blocks: int
+    smem: int
+    state_words: int
+    score_words: int
+
+
+def _col_groups(cols: int, most: int) -> int:
+    """Column groups of 4 of a tile over ``cols`` columns: a power of two from 4 to ``most``."""
+    return min(most, max(4, _pow2_at_least(math.ceil(cols / 4))))
+
+
+def lut_attn_plan(G: int, M: int, D: int, T: int, P: int, bm: int, sms: int, *,
+                  slice_words: int, staged: bool, whole: bool) -> LutAttnPlan:
+    """The fused LUT kernel's launch for a T slice of ``slice_words``
+    words, a table route and a whole or split row tile: the sub-tile (the
+    power of two at or above bm, at most 16), a QK^T tile over the slice's
+    columns (at most 128: the mask skips a tile whose scores it removes from
+    every row), a PV tile over P (at most 256 columns), and what follows
+    (``smem_bytes`` in attn_fused_lut.cu).  ``lut_attn_launch_plan`` picks
+    the wrapper's; the card tests and chip_smoke run others."""
+    n_words = math.ceil(T / 32)
+    slices = math.ceil(n_words / slice_words)
+    if whole and slices != 1:
+        raise ValueError(f"a whole row tile takes all of T: {slices} slices of {slice_words} words")
+    tiles = G * (M // bm)
+    rt = _pow2_at_least(min(bm, MAX_ROWS))
+    qk_cg = _col_groups(min(T, 32 * slice_words), _LUT_QK_CG)
+    pv_cg = _col_groups(P, LUT_MAX_CG)
+    slab = bm * (32 * n_words + 1) if whole else 0
+    smem = ((mkernel.LUT_TABLE_BYTES if staged else 0) + 16 * rt * max(qk_cg, pv_cg)
+            + 4 * LUT_A_WORDS + 4 * slab)
+    return LutAttnPlan(bm, rt, slice_words, slices, qk_cg, pv_cg, staged, whole,
+                       tiles if whole else min(2 * tiles * slices, sms), smem,
+                       0 if whole else 1 + TILE_WORDS * tiles + G * M * P,
+                       0 if whole else G * M * 32 * n_words + 3 * G * M)
+
+
+@lru_cache(maxsize=256)
+def lut_attn_launch_plan(G: int, M: int, D: int, T: int, P: int, bm: int, sms: int,
+                         int16: bool) -> LutAttnPlan:
+    """The T split (``csrc/attn_tsplit.cuh``) and tiles of one call.
+
+    T is cut into slices of whole 32-column words, as few as give one wave
+    of QK^T items, one an SM, over the G M / bm row tiles: the long decode
+    (2 row tiles of 8 rows) cuts its 256 words into 64 slices of 4, a
+    served decode (T = 24) or prefill (T = 16) keeps one slice, and so does
+    a long prefill whose row tiles fill the card.  With one slice and at
+    most one row tile an SM, a block takes its row tile whole where its
+    scores fit in shared memory (QK^T, the softmax and PV in one block, no
+    hand-off); with more row tiles than SMs (the long prefill's 512) the
+    split join's persistent blocks stage the table once and take the tiles
+    by ticket, which balances the causal tiles' uneven work (on an H100,
+    1.26 ms against 1.32 whole at (1, 8192, 1024): chip_smoke phase 4,
+    PERF.md).  The int16 table is staged in shared memory once a block
+    where the call has at least ``LUT_STAGE_MIN_PRODUCTS`` products, as in
+    the gather matmul; the int32 table never is.  int32 sums are exact in
+    any order and the softmax's row sum has one order whatever the
+    slicing, so the plan changes the time, never a bit.
+    """
+    n_words = math.ceil(T / 32)
+    want = min(n_words, max(1, math.ceil(sms / (G * (M // bm)))))
+    slice_words = math.ceil(n_words / want)
+    staged = bool(int16) and G * M * T * (D + P) >= mkernel.LUT_STAGE_MIN_PRODUCTS
+    plan = lut_attn_plan(G, M, D, T, P, bm, sms, slice_words=slice_words, staged=staged,
+                         whole=slice_words >= n_words and G * (M // bm) <= sms)
+    if plan.whole and plan.smem > SMEM_LIMIT:
+        plan = lut_attn_plan(G, M, D, T, P, bm, sms, slice_words=slice_words, staged=staged,
+                             whole=False)
+    return plan
 
 
 class InjectPlan(NamedTuple):
@@ -171,7 +264,7 @@ def inject_launch_plan(G: int, M: int, D: int, T: int, P: int, bm: int, sms: int
                       1 + TILE_WORDS * tiles + G * M * P, G * M * 32 * n_words + G * M)
 
 
-# per (device, stream): the inject kernel's score scratch (float32, any content)
+# per (device, stream): the fused kernels' score scratch (float32, any content)
 _SCORES: dict[tuple[int, int], torch.Tensor] = {}
 
 
@@ -182,24 +275,6 @@ def _score_scratch(device: torch.device, stream: int, n: int) -> int:
         scores = torch.empty(n, dtype=torch.float32, device=device)
         _SCORES[key] = scores
     return scores.data_ptr()
-
-
-def _sub_tile_rows(bm: int, fixed: int, per_row: int, T: int) -> int:
-    """Rows a LUT block holds at once: up to 16 (and bm) within the target
-    share of shared memory; raises when one row's scores do not fit at all."""
-    if fixed + per_row > SMEM_LIMIT:
-        raise ValueError(f"the fused attention LUT kernel holds a row's {T} scores in shared "
-                         f"memory: T={T} needs {fixed + per_row} bytes, more than a "
-                         f"block's {SMEM_LIMIT}")
-    return max(1, min(MAX_ROWS, bm, (_SMEM_TARGET - fixed) // per_row))
-
-
-def _lut_rows(bm: int, T: int, D: int, P: int) -> int:
-    """The LUT kernel's sub-tile: a power of two (its row count is a
-    template parameter); a row takes its scores, its int32 PV sums and its
-    q bytes."""
-    rows = _sub_tile_rows(bm, 4 * MAX_ROWS, 4 * (T + P) + D, T)
-    return 1 << (rows.bit_length() - 1)
 
 
 def _check_operands(q, kt, v, sq, sk, sv, mask) -> tuple[int, int, int, int, int]:
@@ -234,21 +309,41 @@ def _check_bm(M: int, bm: int) -> None:
 def attn_fused_lut(q, kt, v, sq, sk, sv, mask, table: torch.Tensor, *, scale: float,
                    bm: int | None = None) -> torch.Tensor:
     """Fused attention with both products gathered from ``table`` (256, 256)
-    int16 or int32 -> (G, M, P) float32.  ``bm`` query rows per block (a
-    divisor of M; None = ``default_row_tile``) change the time, never a bit.
-    An int16 table must hold every product exactly."""
+    int16 or int32 -> (G, M, P) float32.  ``bm`` query rows per tile (a
+    divisor of M; None = ``default_row_tile``) change the time, never a bit,
+    and so does the T split (``lut_attn_launch_plan``).  An int16 table must
+    hold every product exactly."""
     G, M, D, T, P = _check_operands(q, kt, v, sq, sk, sv, mask)
     _check_table(table)
-    bm = default_row_tile(G, M, "lut") if bm is None else bm
-    _check_bm(M, bm)
+    if bm is not None:
+        _check_bm(M, bm)
     if _route(q, kt, v, sq, sk, sv, mask, table) == "cpu":
         return attn_fused_lut_ref(q, kt, v, sq, sk, sv, mask, table, scale)
     _check_cuda(q=q, kt=kt, v=v, sq=sq, sk=sk, sv=sv, mask=mask, table=table)
-    rows = _lut_rows(bm, T, D, P)
+    sms = _sm_count(q.device)
+    bm = default_row_tile(G, M, "lut", T, sms) if bm is None else bm
+    plan = lut_attn_launch_plan(G, M, D, T, P, bm, sms, table.dtype == torch.int16)
+    return attn_fused_lut_with_plan(q, kt, v, sq, sk, sv, mask, table, scale=scale, plan=plan)
+
+
+def attn_fused_lut_with_plan(q, kt, v, sq, sk, sv, mask, table: torch.Tensor, *, scale: float,
+                             plan: LutAttnPlan) -> torch.Tensor:
+    """The LUT kernel on checked CUDA operands under ``plan``: the wrapper
+    passes ``lut_attn_launch_plan``'s, the card tests and chip_smoke others
+    (``lut_attn_plan``), so that every row tile, T split and table route is
+    held to the plain version."""
+    G, M, D = q.shape
+    T, P = kt.shape[-1], v.shape[-1]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty((G, M, P), dtype=torch.float32, device=q.device)
+    state = scores = 0
+    if not plan.whole:
+        state = _zeros(q.device, stream, plan.state_words, "attn_tsplit")
+        scores = _score_scratch(q.device, stream, plan.score_words)
     LUT(q.data_ptr(), kt.data_ptr(), v.data_ptr(), sq.data_ptr(), sk.data_ptr(), sv.data_ptr(),
         mask.data_ptr(), table.data_ptr(), int(table.dtype == torch.int16), out.data_ptr(),
-        scale, G, M, D, T, P, bm, rows, _stream())
+        state, scores, scale, G, M, D, T, P, plan.bm, plan.rt, plan.slice_words, plan.qk_cg,
+        plan.pv_cg, int(plan.staged), int(plan.whole), plan.blocks, stream)
     return out
 
 
@@ -283,7 +378,7 @@ def attn_fused_inject_with_plan(inj: CompiledInjector, q, kt, v, sq, sk, sv, mas
     prog, ops, fin, vbits = rkernel.program_tensors(inj, q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty((G, M, P), dtype=torch.float32, device=q.device)
-    state = _zeros(q.device, stream, plan.state_words, "attn_inject")
+    state = _zeros(q.device, stream, plan.state_words, "attn_tsplit")
     scores = _score_scratch(q.device, stream, plan.score_words)
     INJECT(q.data_ptr(), kt.data_ptr(), v.data_ptr(), sq.data_ptr(), sk.data_ptr(),
            sv.data_ptr(), mask.data_ptr(), out.data_ptr(), state, scores, ops.data_ptr(),

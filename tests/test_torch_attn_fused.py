@@ -296,14 +296,15 @@ def test_kernel_wrappers_check_their_operands():
     with pytest.raises(ValueError, match="bm=3"):
         kernel.attn_fused_inject(tengine.get_injector(2, 8), q8, k8, v8, sq, sk, sv, mask,
                                  scale=4.0, bm=3)
-    assert kernel.default_row_tile(1, 8192, "lut") == 16
-    assert kernel.default_row_tile(1, 2048, "lut") == 8
+    assert kernel.default_row_tile(1, 8192, "lut", 1024, 132) == 16
+    assert kernel.default_row_tile(1, 2048, "lut", 256, 132) == 16
     assert kernel.default_row_tile(1, 2048, "inject", 256, 132) == 8
     assert kernel.default_row_tile(2, 8, "inject", 8192, 132) == 8
+    assert kernel.default_row_tile(2, 8, "lut", 8192, 132) == 8
     assert kernel.default_row_tile(2, 8, "inject", 24, 132) == 1
     with pytest.raises(ValueError, match="depends on T"):
-        kernel.default_row_tile(2, 8, "inject")
-    assert kernel.default_row_tile(2, 8, "lut") == 1
+        kernel.default_row_tile(2, 8, "inject", 0, 132)
+    assert kernel.default_row_tile(2, 8, "lut", 24, 132) == 1
 
 
 def _fold(q, k, v):

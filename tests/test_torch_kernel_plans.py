@@ -10,7 +10,7 @@ low-rank kernel's grid must fill the card at the rank-8 gemma-2b path's
 shapes while its K chunks, and so its summation order, depend on K alone.
 The SSD scan's plan covers every (chunk, batch, head, P slice) with one
 block, in an order where a block only waits on lower tickets; the fused
-inject kernel's T split covers T in whole words.  The kernels themselves
+kernels' T splits cover T in whole words and fit a block's shared memory.  The kernels themselves
 run only on a GPU (tests/test_torch_kernels_cuda.py).
 """
 import itertools
@@ -200,7 +200,9 @@ def test_lut_constants_match_the_source():
     assert eval(consts["kThreads"]) == mkernel.LUT_THREADS
     assert eval(consts["kAEntries"]) == mkernel.LUT_A_ENTRIES
     assert eval(consts["kMaxCg"]) == mkernel.LUT_MAX_CG
-    assert eval(consts["kTableBytes16"]) == mkernel.LUT_TABLE_BYTES
+    header = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", mkernel.GATHER_HEADER.read_text()))
+    assert eval(header["kTableBytes16"]) == mkernel.LUT_TABLE_BYTES
+    assert mkernel.GATHER_HEADER in mkernel.LUT_LIBRARY.headers
 
 
 # (G, M, K, N) of the amr_inject gemma-2b path: the dense sites at decode and
@@ -400,3 +402,102 @@ def test_inject_constants_match_the_source():
     header = akernel.TSPLIT_HEADER.read_text()
     assert int(re.search(r"constexpr int kTileWords = (\d+);", header).group(1)) == \
         akernel.TILE_WORDS
+
+
+def _lut_attn_plan(G, M, D, T, P, bm=None, int16=True):
+    bm = akernel.default_row_tile(G, M, "lut", T, H100_SMS) if bm is None else bm
+    return akernel.lut_attn_launch_plan(G, M, D, T, P, bm, H100_SMS, int16)
+
+
+# (G, M, D, T, P) of the fused LUT op at gemma-2b's width: the long decode,
+# the served decode and prefill, the lut long prefill (S = 1024) and 128
+# rows over the long context; and the CUDA tests' shapes (T off a word,
+# small widths, T beyond what a block's shared memory holds)
+LUT_ATTN_SHAPES = [(2, 8, 256, 8192, 256), (2, 8, 256, 24, 256), (1, 128, 256, 16, 256),
+                   (1, 8192, 256, 1024, 256), (2, 64, 256, 8192, 256), (1, 256, 256, 256, 256),
+                   (3, 6, 40, 70, 33), (1, 64, 16, 1000, 24), (2, 8, 256, 1000, 256),
+                   (1, 16, 64, 300, 40), (2, 4, 32, 33, 8), (1, 2, 16, 60000, 8)]
+
+
+@pytest.mark.parametrize("int16", [True, False])
+@pytest.mark.parametrize("bm", [None, 1, 2])
+@pytest.mark.parametrize("G,M,D,T,P", LUT_ATTN_SHAPES)
+def test_lut_attn_t_split_covers_t_in_whole_words(G, M, D, T, P, bm, int16):
+    """The slices cover T's words once, the last one partial where T is
+    not a multiple of 32; the state and score scratch have the kernel's
+    sizes (none for a whole row tile); the sub-tile and the tiles' column
+    groups are ones the kernel takes."""
+    plan = _lut_attn_plan(G, M, D, T, P, bm, int16)
+    n_words = math.ceil(T / 32)  # the slices as attn_fused_lut.cu takes them
+    words = [(w, min(n_words, w + plan.slice_words)) for w in range(0, n_words, plan.slice_words)]
+    assert len(words) == plan.slices and words[0][0] == 0 and words[-1][1] == n_words
+    assert all(b - a == plan.slice_words for a, b in words[:-1])
+    assert min(T, 32 * words[-1][1]) - 32 * words[-1][0] >= 1
+    tiles = G * (M // plan.bm)
+    assert plan.blocks == (tiles if plan.whole else min(2 * tiles * plan.slices, H100_SMS))
+    assert not plan.whole or plan.slices == 1
+    if plan.whole:
+        assert plan.state_words == plan.score_words == 0
+    else:
+        assert plan.state_words == 1 + akernel.TILE_WORDS * tiles + G * M * P
+        assert plan.score_words == G * M * 32 * n_words + 3 * G * M
+    assert plan.rt in (1, 2, 4, 8, 16) and min(plan.bm, 16) <= plan.rt < 2 * min(plan.bm, 16)
+    for cg in (plan.qk_cg, plan.pv_cg):
+        assert cg in (4, 8, 16, 32, 64) and cg <= akernel.LUT_MAX_CG
+    assert 4 * plan.qk_cg >= min(T, 32 * plan.slice_words, 128)
+    assert 4 * plan.pv_cg >= min(P, 4 * akernel.LUT_MAX_CG)
+
+
+@pytest.mark.parametrize("G,M,D,T,P", LUT_ATTN_SHAPES)
+def test_lut_attn_shared_memory_fits(G, M, D, T, P):
+    """Every plan the wrapper takes fits a block, the staged table
+    included; the int16 table is staged where the call has enough
+    products, the int32 table (256 KB) never; one slice runs whole where
+    the row tiles take at most one wave of the card and a row tile's scores
+    fit beside the rest, else through the split join."""
+    for bm in (None, 1, 2):
+        for int16 in (True, False):
+            plan = _lut_attn_plan(G, M, D, T, P, bm, int16)
+            assert plan.smem <= SM90_SMEM_PER_BLOCK
+            assert plan.staged == (int16 and G * M * T * (D + P) >= mkernel.LUT_STAGE_MIN_PRODUCTS)
+            if plan.slices == 1 and not plan.whole:
+                whole = akernel.lut_attn_plan(G, M, D, T, P, plan.bm, H100_SMS,
+                                              slice_words=plan.slice_words,
+                                              staged=plan.staged, whole=True)
+                assert whole.smem > SM90_SMEM_PER_BLOCK or whole.blocks > H100_SMS
+    widest = akernel.lut_attn_plan(1, 16, 256, 8192, 256, 16, H100_SMS, slice_words=4,
+                                   staged=True, whole=False)
+    assert widest.rt == 16 and widest.pv_cg == akernel.LUT_MAX_CG
+    assert widest.smem <= SM90_SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="whole row tile"):
+        akernel.lut_attn_plan(2, 8, 256, 8192, 256, 8, H100_SMS, slice_words=4, staged=True,
+                              whole=True)
+
+
+def test_lut_attn_t_split_fills_the_card_at_the_long_decode():
+    """gemma-2b's 8192-token decode (8 rows a group, 2 groups) runs QK^T
+    and PV items that fill the card, in row tiles of all 8 rows (a K^T
+    column offset and a V load serve the 8), on the staged table; the
+    served decode and prefill keep one slice on the whole path; the long
+    prefill's 512 row tiles of 16 rows keep one slice on persistent blocks."""
+    plan = _lut_attn_plan(2, 8, 256, 8192, 256)
+    assert plan.bm == plan.rt == 8 and not plan.whole and plan.staged
+    assert mkernel.fills_the_card(2 * plan.slices, H100_SMS) and plan.blocks == H100_SMS
+    for G, M, T in ((2, 8, 24), (1, 128, 16)):
+        plan = _lut_attn_plan(G, M, 256, T, 256)
+        assert plan.slices == 1 and plan.whole and plan.blocks == G * M // plan.bm
+        assert not plan.staged
+    plan = _lut_attn_plan(1, 8192, 256, 1024, 256)
+    assert plan.bm == 16 and plan.slices == 1 and not plan.whole and plan.staged
+    assert plan.blocks == H100_SMS
+
+
+def test_lut_attn_constants_match_the_source():
+    text = akernel.LUT_LIBRARY.source.read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = ([^;/]+);", text))
+    assert int(consts["kMaxRows"]) == akernel.MAX_ROWS
+    assert int(consts["kMaxCg"]) == akernel.LUT_MAX_CG
+    assert int(consts["kAWords"]) == akernel.LUT_A_WORDS
+    assert int(consts["kMaxSmem"]) == akernel.SMEM_LIMIT
+    assert mkernel.GATHER_HEADER in akernel.LUT_LIBRARY.headers
+    assert akernel.TSPLIT_HEADER in akernel.LUT_LIBRARY.headers

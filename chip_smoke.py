@@ -10,20 +10,23 @@ Phases (any failure raises, and the run exits non-zero):
    seconds and the card's name, power limit and maximum SM clock;
 2. kernels — each kernel against its plain PyTorch version on the card at
    the served paths' shapes: the flat and grouped gather kernels at every
-   rank-0 shape of gemma-2b and mamba2-370m (dense sites, attn.qk /
-   attn.pv, ssm.scan; ``gather_shapes``) bit for bit at border 8 (int16
+   rank-0 shape of gemma-2b, mamba2-370m and gemma3-1b (dense sites,
+   attn.qk / attn.pv, ssm.scan; gemma3-1b's against its window ring and
+   global cache, in its 600-token prefill and in one 2048-query block of
+   its chunked prefill; ``gather_shapes``) bit for bit at border 8 (int16
    table) and border 14 (int32 table, products beyond int16), one launch a
    call, with the profiler's device time (``device_ms``), the launch plan
    and, at border 8, the device time of the same plan on the other table
-   route (staged in shared memory or read through L1); the low-rank kernel
-   within 1e-5 * max_mn sum_k (|a b| + sum_r |u v|) of its plain version
-   and within K * sigma_{r+1} (plus that slack) of the bit-exact table
-   sums, the circuit-replay kernel bit for bit against its plain version
-   and against the gather kernel on the same operands at border 8 and 14
-   (and, at the decode shapes, on the border-6 schedule), and against the
-   float64 integer product on the exact schedule (border None), every
-   replay program on the build's LOP3 immediates alone (``generic_ops`` 0,
-   printed); time kernel, plain version and, for the low-rank kernel, one
+   route (staged in shared memory or read through L1); at gemma-2b's and
+   gemma3-1b's shapes, the low-rank kernel within 1e-5 * max_mn sum_k
+   (|a b| + sum_r |u v|) of its plain version and within K * sigma_{r+1}
+   (plus that slack) of the bit-exact table sums, the circuit-replay
+   kernel bit for bit against its plain version and against the gather
+   kernel on the same operands at border 8 and 14 (and, at the decode
+   shapes, on the border-6 schedule), and against the float64 integer
+   product on the exact schedule (border None), every replay program on
+   the build's LOP3 immediates alone (``generic_ops`` 0, printed); time
+   kernel, plain version and, for the low-rank kernel, one
    ``torch.matmul`` on the prebuilt augmented operands (the yardstick),
    both also as device time under ``torch.profiler`` (``device_ms``: at N
    = 256 the wrapper's host time holds the event times); the SSD
@@ -48,9 +51,10 @@ Phases (any failure raises, and the run exits non-zero):
    launch) and the device time, side by side;
 3. reference — reduced gemma-2b in float32 on the card (kernels) and on
    the CPU (plain versions), same weights, under amr_kernel rank 0 and 8
-   and amr_inject, and reduced mamba2-370m under exact (SSD kernel in full
-   mode) and amr_kernel rank 0 (split mode): tokens equal, logits within
-   1e-3 * max|logit|;
+   and amr_inject, reduced mamba2-370m under exact (SSD kernel in full
+   mode) and amr_kernel rank 0 (split mode), and reduced gemma3-1b under
+   rank 0 and amr_inject (one more prompt, of 11 tokens, past its window
+   of 8): tokens equal, logits within 1e-3 * max|logit|;
 4. attn_fused — the fused AMR attention op (``kernels/attn_fused``), which
    no served step dispatches (the models run the unfused seam, as the JAX
    package's do), at gemma-2b's attention width (8 heads, 1 KV head,
@@ -94,7 +98,20 @@ Phases (any failure raises, and the run exits non-zero):
 7. profile — one more run of 2 requests at rank 0, at rank 8 and under
    amr_inject for gemma-2b, and at rank 0 for mamba2-370m, under
    ``torch.profiler``: device time by kernel and by kernel family (every
-   template instance of a hand kernel), and the device's idle share.
+   template instance of a hand kernel), and the device's idle share;
+8. gemma3-1b — full width (26 layers, 5 window layers to 1 global, window
+   512, d_model 1152, 4 heads, 1 KV head, head_dim 256, d_ff 6912, vocab
+   262144, random weights from seed 0) through ``ServeEngine``, as in
+   phases 5-7: rank 0 with 2 prompts of 600 tokens, 8 new tokens each,
+   capacity 640 (its window rings roll in prefill and wrap in decode:
+   checked from the engine's cache), rank 8 (4 x 8) and amr_inject (2 x 4)
+   with 16-token prompts; the gathers, the low-rank and the replay kernel
+   launched and no other; batched vs solo bit for bit and a profile of
+   each.  Then one attention layer of each kind prefilled at S = 16384
+   under rank 0: the entry point takes the chunked form (8 query blocks,
+   two grouped gather launches each), whose output equals the one-block
+   form's bit for bit.  Phase 2 holds the kernels at gemma3-1b's shapes
+   too, and phase 3 serves reduced gemma3-1b (window 8) on card and CPU.
 
 Bounds: the larger of the bytes over 3.35 TB/s and the operations over the
 peak rate of their type: float32 67 T/s (the H100 SXM data sheet, an FMA
@@ -125,6 +142,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -141,8 +159,11 @@ SSD_LONG = 1024  # the longer SSD shape: 4 chunks of 256
 SSD_CONTEXT = 2048  # the Mamba2 models' training context: 8 chunks, more blocks than SMs
 INJECT_GEN, INJECT_REQUESTS = 4, 2
 CAPACITY = PROMPT_LEN + GEN
+G3_PROMPT, G3_CAPACITY = 600, 640  # gemma3-1b's long rank-0 run: past its 512-token window
+G3_CHUNKED_S = 16384               # gemma3-1b's chunked prefill: 8 query blocks of 2048
 TRANSPOSE_OPS = 5 * 16 * 6  # 32x32 bit transpose: 5 levels x 16 word pairs x 6 ops
 PLAIN_REPLAY_PAIRS = 1 << 24  # the plain replay's chunk on the card (memory knob only)
+GATHERS = {"amr_matmul_int8_lut", "amr_matmul_int8_lut_grouped"}
 
 
 def log(msg: str) -> None:
@@ -293,8 +314,9 @@ def path_shapes(cfg) -> tuple[list, list, dict]:
     fold into the rows."""
     g = cfg.n_heads // cfg.n_kv_heads
     kv, hd = cfg.n_kv_heads, cfg.head_dim
-    dense_kn = [(cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model), (cfg.d_model, kv * hd),
-                (cfg.d_model, cfg.n_heads * hd)]
+    dense_kn = list(dict.fromkeys([(cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model),
+                                   (cfg.d_model, kv * hd), (cfg.d_model, cfg.n_heads * hd),
+                                   (cfg.n_heads * hd, cfg.d_model)]))
     grouped = {"decode qk": (SLOTS * kv, g, hd, CAPACITY),
                "decode pv": (SLOTS * kv, g, CAPACITY, hd),
                "prefill qk": (kv, g * PROMPT_LEN, hd, PROMPT_LEN),
@@ -302,13 +324,29 @@ def path_shapes(cfg) -> tuple[list, list, dict]:
     return [SLOTS, PROMPT_LEN], dense_kn, grouped
 
 
-def gather_shapes(cfg, mamba_cfg) -> list[tuple]:
+def g3_grouped_shapes(cfg) -> dict:
+    """gemma3-1b's attn.qk / attn.pv (G, M, K, N) on its long rank-0 path:
+    decode over the slots against a window ring and a global cache, the
+    prefill of one long prompt, and one query block of the chunked prefill."""
+    from repro_torch.models.attention import _Q_CHUNK as q
+
+    g, hd, w = cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, cfg.sliding_window
+    return {"decode qk swa": (SLOTS, g, hd, w), "decode pv swa": (SLOTS, g, w, hd),
+            "decode qk full": (SLOTS, g, hd, G3_CAPACITY),
+            "decode pv full": (SLOTS, g, G3_CAPACITY, hd),
+            "prefill qk": (1, g * G3_PROMPT, hd, G3_PROMPT),
+            "prefill pv": (1, g * G3_PROMPT, G3_PROMPT, hd),
+            "chunk qk": (1, g * q, hd, G3_CHUNKED_S), "chunk pv": (1, g * q, G3_CHUNKED_S, hd)}
+
+
+def gather_shapes(cfg, mamba_cfg, g3_cfg=None) -> list[tuple]:
     """(model, site, G, M, K, N, grouped) of the gather kernels on the rank-0
     serve paths: gemma-2b's dense sites and attn.qk / attn.pv, then
     mamba2-370m's dense sites (wz/wx, wb/wc, wdt, out_proj) and its
     ssm.scan readout, at decode over the slots (one row a slot and head)
     and in a prefill of one prompt (one chunk of rows, those past the
-    prompt zero)."""
+    prompt zero); with ``g3_cfg``, gemma3-1b's dense sites at decode and in
+    the long prompt's prefill and its ``g3_grouped_shapes``."""
     from repro_torch.models.ssm import ssm_dims
 
     dense_m, dense_kn, grouped = path_shapes(cfg)
@@ -321,11 +359,17 @@ def gather_shapes(cfg, mamba_cfg) -> list[tuple]:
     N, P = mamba_cfg.ssm.d_state, mamba_cfg.ssm.head_dim
     out += [("mamba2-370m", "decode ssm.scan", SLOTS * H, 1, N, P, True),
             ("mamba2-370m", "prefill ssm.scan", H, mamba_cfg.ssm.chunk, N, P, True)]
+    if g3_cfg is not None:
+        out += [("gemma3-1b", "dense", 1, m, k, n, False) for m in (SLOTS, G3_PROMPT)
+                for k, n in path_shapes(g3_cfg)[1]]
+        out += [("gemma3-1b", site, *shape, True)
+                for site, shape in g3_grouped_shapes(g3_cfg).items()]
     return out
 
 
-def phase_kernels(device, cfg, mamba_cfg) -> dict:
-    """Every kernel against its plain version at the main path's shapes."""
+def phase_kernels(device, cfg, mamba_cfg, g3_cfg) -> dict:
+    """Every kernel against its plain version at the main paths' shapes:
+    gemma-2b's and gemma3-1b's (``cfg``, ``g3_cfg``), mamba2-370m's."""
     import torch
 
     from repro_torch.core import lut
@@ -333,53 +377,54 @@ def phase_kernels(device, cfg, mamba_cfg) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(0)
     rows: dict[str, list[dict]] = {"lowrank": [], "replay": [], "ssd": []}
-    dense_m, dense_kn, grouped = path_shapes(cfg)
     int_rate = int_ops_per_s(device)
     log(f"[kernel] integer rate {int_rate / 1e12:.2f} T/s, float32 rate "
         f"{PEAK_FLOAT_OPS_PER_S / 1e12:.0f} T/s, memory {PEAK_BYTES_PER_S / 1e12:.2f} TB/s")
 
-    # the gather kernels: dense sites and grouped products at rank 0, both models
-    rows = {**gather_kernel_rows(device, cfg, mamba_cfg, gen, int_rate), **rows}
+    # the gather kernels: dense sites and grouped products at rank 0, all three models
+    rows = {**gather_kernel_rows(device, cfg, mamba_cfg, g3_cfg, gen, int_rate), **rows}
 
-    # low-rank kernel: dense sites at rank 8
+    # low-rank kernel: dense sites at rank 8, gemma-2b's then gemma3-1b's
     u, v = lut.factor_tensors(BORDER, RANK, device)
     sigma = lut.lowrank_factor(BORDER, RANK).sigma_next
     table32 = lut.table_tensor(BORDER, device)
-    for m in dense_m:
-        for k, n in dense_kn:
-            a = _int8((m, k), gen, device)
-            bs = [_int8((k, n), gen, device) for _ in range(min(copies(k * n), 64))]
-            got = kernel.amr_matmul_int8(a, bs[0], u, v)
-            want = ref.lowrank_matmul_ref(a, bs[0], u, v)
-            fa, fb = a.float(), bs[0].float()
-            scale = float((fa.abs() @ fb.abs() + ref.lowrank_matmul_ref(a, bs[0], u.abs(), v.abs())
-                           - fa @ fb).max())
-            err = float((got - want).abs().max())
-            if not err <= 1e-5 * scale:
-                raise AssertionError(f"low-rank kernel off its plain version at {(m, k, n)}: "
-                                     f"{err} > 1e-5 * {scale}")
-            exact = ref.lut_matmul_ref(a, bs[0], table32).double()
-            gap = float((got.double() - exact).abs().max())
-            if not gap <= k * sigma + 1e-5 * scale:
-                raise AssertionError(f"low-rank kernel beyond K*sigma_(r+1) at {(m, k, n)}: "
-                                     f"{gap} > {k * sigma}")
-            # library yardstick: one float32 matmul on the prebuilt augmented operands
-            ua, vb = u[a.long() + 128], v[bs[0].long() + 128]
-            a_aug = torch.cat([fa[..., None], ua], -1).reshape(m, k * (1 + RANK))
-            b_aug = torch.cat([fb[:, None, :], vb.transpose(1, 2)], 1).reshape(k * (1 + RANK), n)
-            nbytes = m * k + k * n + 2 * u.numel() * 4 + 4 * m * n
-            b_ms, b_by = bound(nbytes, 2 * m * n * k * (1 + RANK), PEAK_FLOAT_OPS_PER_S)
-            args = [(a, b, u, v) for b in bs]
-            rows["lowrank"].append(dict(
-                border=BORDER, rank=RANK, shape=(m, k, n), max_abs_err=err, gap_vs_exact=gap,
-                k_sigma=k * sigma, bound_ms=b_ms, bound_by=b_by,
-                ms=time_ms(kernel.amr_matmul_int8, args, 50),
-                plain_ms=time_ms(ref.lowrank_matmul_ref, [(a, bs[0], u, v)], 2),
-                library_ms=time_ms(torch.matmul, [(a_aug, b_aug)], 50),
-                device_ms=device_ms(kernel.amr_matmul_int8, args, 20),
-                library_device_ms=device_ms(torch.matmul, [(a_aug, b_aug)], 20)))
-            del ua, vb, a_aug, b_aug
-    rows["replay"] = replay_kernel_rows(device, dense_m, dense_kn, grouped, int_rate)
+    cases = [(c.name, m, k, n) for c in (cfg, g3_cfg)
+             for m in path_shapes(c)[0] for k, n in path_shapes(c)[1]]
+    for model, m, k, n in cases:
+        a = _int8((m, k), gen, device)
+        bs = [_int8((k, n), gen, device) for _ in range(min(copies(k * n), 64))]
+        got = kernel.amr_matmul_int8(a, bs[0], u, v)
+        want = ref.lowrank_matmul_ref(a, bs[0], u, v)
+        fa, fb = a.float(), bs[0].float()
+        scale = float((fa.abs() @ fb.abs() + ref.lowrank_matmul_ref(a, bs[0], u.abs(), v.abs())
+                       - fa @ fb).max())
+        err = float((got - want).abs().max())
+        if not err <= 1e-5 * scale:
+            raise AssertionError(f"low-rank kernel off its plain version at {(m, k, n)}: "
+                                 f"{err} > 1e-5 * {scale}")
+        exact = ref.lut_matmul_ref(a, bs[0], table32).double()
+        gap = float((got.double() - exact).abs().max())
+        if not gap <= k * sigma + 1e-5 * scale:
+            raise AssertionError(f"low-rank kernel beyond K*sigma_(r+1) at {(m, k, n)}: "
+                                 f"{gap} > {k * sigma}")
+        # library yardstick: one float32 matmul on the prebuilt augmented operands
+        ua, vb = u[a.long() + 128], v[bs[0].long() + 128]
+        a_aug = torch.cat([fa[..., None], ua], -1).reshape(m, k * (1 + RANK))
+        b_aug = torch.cat([fb[:, None, :], vb.transpose(1, 2)], 1).reshape(k * (1 + RANK), n)
+        nbytes = m * k + k * n + 2 * u.numel() * 4 + 4 * m * n
+        b_ms, b_by = bound(nbytes, 2 * m * n * k * (1 + RANK), PEAK_FLOAT_OPS_PER_S)
+        args = [(a, b, u, v) for b in bs]
+        rows["lowrank"].append(dict(
+            model=model, border=BORDER, rank=RANK, shape=(m, k, n), max_abs_err=err,
+            gap_vs_exact=gap, k_sigma=k * sigma, bound_ms=b_ms, bound_by=b_by,
+            ms=time_ms(kernel.amr_matmul_int8, args, 50),
+            plain_ms=time_ms(ref.lowrank_matmul_ref, [(a, bs[0], u, v)], 2),
+            library_ms=time_ms(torch.matmul, [(a_aug, b_aug)], 50),
+            device_ms=device_ms(kernel.amr_matmul_int8, args, 20),
+            library_device_ms=device_ms(torch.matmul, [(a_aug, b_aug)], 20)))
+        del ua, vb, a_aug, b_aug
+    rows["replay"] = [dict(model=c.name, **r) for c in (cfg, g3_cfg)
+                      for r in replay_kernel_rows(device, *path_shapes(c), int_rate)]
     rows["ssd"] = ssd_kernel_rows(device, mamba_cfg)
     for name, rs in rows.items():
         for r in rs:
@@ -387,7 +432,7 @@ def phase_kernels(device, cfg, mamba_cfg) -> dict:
     return rows
 
 
-def gather_kernel_rows(device, cfg, mamba_cfg, gen, int_rate) -> dict:
+def gather_kernel_rows(device, cfg, mamba_cfg, g3_cfg, gen, int_rate) -> dict:
     """The flat and grouped gather kernels at every shape of
     ``gather_shapes``, at border 8 (int16 table) and 14 (int32): bit for bit
     against the plain version, one launch a call; event ms (operand copies
@@ -406,7 +451,7 @@ def gather_kernel_rows(device, cfg, mamba_cfg, gen, int_rate) -> dict:
         table = ops.kernel_table(border, device)
         table32 = lut.table_tensor(border, device)
         int16 = table.dtype == torch.int16
-        for model, site, g, m, k, n, grouped_b in gather_shapes(cfg, mamba_cfg):
+        for model, site, g, m, k, n, grouped_b in gather_shapes(cfg, mamba_cfg, g3_cfg):
             lead = (g,) if grouped_b else ()
             fn = kernel.amr_matmul_int8_lut_grouped if grouped_b else kernel.amr_matmul_int8_lut
             a = _int8((*lead, m, k), gen, device)
@@ -752,8 +797,11 @@ def phase_ab(parent: Path) -> dict:
 
 
 def phase_reference(device) -> None:
-    """Reduced gemma-2b, float32: the card's kernels against the CPU's plain versions."""
-    from repro_torch.configs import mamba2_370m
+    """Reduced gemma-2b, mamba2-370m and gemma3-1b, float32: the card's
+    kernels against the CPU's plain versions.  gemma3-1b's window of 8
+    tokens: one prompt of 11 rolls its ring in prefill, the others wrap it
+    in decode."""
+    from repro_torch.configs import gemma3_1b, mamba2_370m
     from repro_torch.configs.gemma_2b import reduced
     from repro_torch.kernels.ssd_scan import kernel as skernel
     from repro_torch.models import init_params
@@ -765,7 +813,10 @@ def phase_reference(device) -> None:
              (reduced(), AMRNumerics("amr_kernel", border=BORDER, rank=RANK)),
              (reduced(), AMRNumerics("amr_inject", border=BORDER)),
              (mamba2_370m.reduced(), AMRNumerics("exact")),
-             (mamba2_370m.reduced(), AMRNumerics("amr_kernel", border=BORDER, rank=0))]
+             (mamba2_370m.reduced(), AMRNumerics("amr_kernel", border=BORDER, rank=0)),
+             (gemma3_1b.reduced(), AMRNumerics("amr_kernel", border=BORDER, rank=0)),
+             (gemma3_1b.reduced(), AMRNumerics("amr_inject", border=BORDER))]
+    prompts = [(5, 9, 2, 7), (3, 11, 4, 1, 8, 6), (13, 2), (9, 7, 9, 1, 2)]
     for base, nm in cases:
         cfg = dataclasses.replace(base, dtype="float32", numerics=nm)
         params = init_params(cfg, 0, device="cpu")
@@ -774,7 +825,8 @@ def phase_reference(device) -> None:
         for dev in ("cpu", device):
             eng = ServeEngine(cfg, tree_map(lambda t: t.to(dev), params), n_slots=2,
                               capacity=24, record_logits=True, device=dev)
-            for prompt in [(5, 9, 2, 7), (3, 11, 4, 1, 8, 6), (13, 2), (9, 7, 9, 1, 2)]:
+            window = [(5, 9, 2, 7, 1, 3, 8, 4, 6, 2, 11)] if base.sliding_window else []
+            for prompt in prompts + window:
                 eng.submit(Request(prompt=prompt, max_new_tokens=5))
             out[str(dev)] = eng.run()
         cpu, card = out["cpu"], out[str(device)]
@@ -1095,29 +1147,61 @@ def all_kernels() -> tuple:
     return kernel.KERNELS + rkernel.KERNELS + skernel.KERNELS + akernel.KERNELS
 
 
+class Run(NamedTuple):
+    """One served run of ``serve_model``: its numerics, requests, new tokens
+    a request, the kernels it must launch (every other kernel must launch
+    no time), the prompt length and the slot capacity."""
+    numerics: object
+    requests: int
+    gen: int
+    uses: set
+    prompt_len: int = PROMPT_LEN
+    capacity: int = CAPACITY
+
+
+def model_prompts(config, n_tokens: int) -> list[tuple]:
+    """REQUESTS prompts of n_tokens random tokens from seed 0."""
+    rng = np.random.default_rng(0)
+    return [tuple(int(t) for t in rng.integers(0, config.vocab, n_tokens))
+            for _ in range(REQUESTS)]
+
+
+def ring_state(config, eng, run: Run) -> str:
+    """The sliding-window layers' rings after a run (KV leaves whose slots are
+    fewer than the run's capacity): slots and the slots' positions.  Raises
+    where a request ran past the window and no ring shows it."""
+    rings = [c for c in eng.cache if hasattr(c, "k") and c.k.shape[2] < run.capacity]
+    if not rings:
+        return "no window ring"
+    slots, last = rings[0].k.shape[2], int(rings[0].length.max())
+    if run.prompt_len + run.gen - 1 > config.sliding_window and last <= slots:
+        raise AssertionError(f"{config.name}: {run.prompt_len + run.gen - 1} positions in "
+                             f"a {slots}-slot ring, which never wrapped")
+    return (f"{len(rings)} window rings x {rings[0].k.shape[0]} copies of {slots} slots, "
+            f"slot positions {rings[0].length[0].tolist()} "
+            f"({'rolled in prefill, ' if run.prompt_len > slots else ''}"
+            f"{'wrapped' if last > slots else 'not wrapped'})")
+
+
 def serve_model(device, card: str, config, params, runs: dict, solo: tuple, profiled: tuple,
                 per_prefill: dict) -> dict:
     """Serve full-width ``config`` (weights ``params``) through ServeEngine
-    under each numerics of ``runs`` (label: (numerics, requests, new tokens,
-    the kernels it must launch; every other kernel must launch no time));
-    the labels in ``solo`` again with request 0 alone, and those in
-    ``profiled`` once more under the profiler.  ``per_prefill`` names
-    kernels that must launch exactly that many times per prefill.  Returns
-    each run's launch counts."""
+    under each ``Run`` of ``runs`` (by label); the labels in ``solo`` again
+    with request 0 alone, and those in ``profiled`` once more under the
+    profiler.  ``per_prefill`` names kernels that must launch exactly that
+    many times per prefill.  Returns each run's launch counts."""
     import torch
 
     from repro_torch.serve import Request, ServeEngine
 
     kernels = all_kernels()
-    rng = np.random.default_rng(0)
-    prompts = [tuple(int(t) for t in rng.integers(0, config.vocab, PROMPT_LEN))
-               for _ in range(REQUESTS)]
 
-    def serve(nm, reqs, gen, n_slots):
-        eng = ServeEngine(dataclasses.replace(config, numerics=nm), params, n_slots=n_slots,
-                          capacity=CAPACITY, record_logits=True, device=device)
-        for p in prompts[:reqs]:
-            eng.submit(Request(prompt=p, max_new_tokens=gen))
+    def serve(run: Run, reqs: int, n_slots: int):
+        eng = ServeEngine(dataclasses.replace(config, numerics=run.numerics), params,
+                          n_slots=n_slots, capacity=run.capacity, record_logits=True,
+                          device=device)
+        for p in model_prompts(config, run.prompt_len)[:reqs]:
+            eng.submit(Request(prompt=p, max_new_tokens=run.gen))
         for k in kernels:
             k.launches = 0
         torch.cuda.reset_peak_memory_stats()
@@ -1127,10 +1211,11 @@ def serve_model(device, card: str, config, params, runs: dict, solo: tuple, prof
         return eng, done, wall, {k.name: k.launches for k in kernels}
 
     launches, batched = {}, {}
-    for label, (nm, reqs, gen, uses) in runs.items():
-        eng, done, wall, counts = serve(nm, reqs, gen, SLOTS)
+    for label, run in runs.items():
+        eng, done, wall, counts = serve(run, run.requests, SLOTS)
         launches[label] = counts
         batched[label] = done[0]
+        reqs, gen = run.requests, run.gen
         if len(done) != reqs or any(len(c.tokens) != gen for c in done):
             raise AssertionError(f"{config.name} {label}: expected {reqs} completions of "
                                  f"{gen} tokens")
@@ -1140,7 +1225,7 @@ def serve_model(device, card: str, config, params, runs: dict, solo: tuple, prof
                    for c in done for x in c.logits):
             raise AssertionError(f"{config.name} {label}: non-finite or misshapen logits")
         for name, n in counts.items():
-            if (name in uses) != (n > 0):
+            if (name in run.uses) != (n > 0):
                 raise AssertionError(f"{config.name} {label}: kernel {name} launched {n} times")
         for name, n in per_prefill.items():
             if counts[name] != n * reqs:
@@ -1154,12 +1239,12 @@ def serve_model(device, card: str, config, params, runs: dict, solo: tuple, prof
             f"{eng.decode_tokens} tokens in {eng.steps_done} steps, {eng.decode_seconds:.3f}s "
             f"({eng.decode_tokens / eng.decode_seconds:.2f} tok/s, "
             f"{1e3 * eng.decode_seconds / eng.steps_done:.1f} ms/step); peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}")
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {ring_state(config, eng, run)}; "
+            f"stats {eng.stats()}; launches {counts}")
 
     # batched vs solo: request 0 alone in a one-slot engine, the same bits
     for label in solo:
-        nm, _, gen, _ = runs[label]
-        _, [one], _, _ = serve(nm, 1, gen, 1)
+        _, [one], _, _ = serve(runs[label], 1, 1)
         diff = max(float(np.abs(x - y).max()) for x, y in zip(batched[label].logits, one.logits))
         if one.tokens != batched[label].tokens or diff != 0.0:
             raise AssertionError(f"{config.name} {label} request 0: batched "
@@ -1168,9 +1253,9 @@ def serve_model(device, card: str, config, params, runs: dict, solo: tuple, prof
         log(f"[batched-vs-solo] {config.name} {label} request 0: tokens identical "
             f"{list(one.tokens)}; max |logit diff| {diff}")
     for label in profiled:
-        nm, _, gen, _ = runs[label]
-        profile_serve(device, card, dataclasses.replace(config, numerics=nm), params, prompts,
-                      gen)
+        run = runs[label]
+        profile_serve(device, card, dataclasses.replace(config, numerics=run.numerics), params,
+                      model_prompts(config, run.prompt_len), run.gen, run.capacity)
     return launches
 
 
@@ -1182,24 +1267,120 @@ def phase_serve(device, card: str, gemma, gemma_params, mamba) -> dict:
 
     rank0 = AMRNumerics("amr_kernel", border=BORDER, rank=0)
     inject = AMRNumerics("amr_inject", border=BORDER)
-    gathers = {"amr_matmul_int8_lut", "amr_matmul_int8_lut_grouped"}
     gemma_runs = {
-        "rank 0": (rank0, REQUESTS, GEN, gathers),
-        f"rank {RANK}": (AMRNumerics("amr_kernel", border=BORDER, rank=RANK), REQUESTS, GEN,
-                         {"amr_matmul_int8"}),
-        "amr_inject": (inject, INJECT_REQUESTS, INJECT_GEN, {"inject_replay"}),
+        "rank 0": Run(rank0, REQUESTS, GEN, GATHERS),
+        f"rank {RANK}": Run(AMRNumerics("amr_kernel", border=BORDER, rank=RANK), REQUESTS, GEN,
+                            {"amr_matmul_int8"}),
+        "amr_inject": Run(inject, INJECT_REQUESTS, INJECT_GEN, {"inject_replay"}),
     }
     launches = {"gemma-2b": serve_model(device, card, gemma, gemma_params, gemma_runs,
                                         tuple(gemma_runs), tuple(gemma_runs), {})}
     gemma_params.clear()  # free gemma-2b's weights: mamba2-370m's peak memory is its own
     mamba_runs = {
-        "rank 0": (rank0, REQUESTS, GEN, gathers | {"ssd_scan"}),
-        "amr_inject": (inject, INJECT_REQUESTS, INJECT_GEN, {"inject_replay", "ssd_scan"}),
+        "rank 0": Run(rank0, REQUESTS, GEN, GATHERS | {"ssd_scan"}),
+        "amr_inject": Run(inject, INJECT_REQUESTS, INJECT_GEN, {"inject_replay", "ssd_scan"}),
     }
     launches["mamba2-370m"] = serve_model(device, card, mamba, model_params(device, mamba),
                                           mamba_runs, ("rank 0", "amr_inject"), ("rank 0",),
                                           {"ssd_scan": mamba.n_layers})
     return launches
+
+
+def phase_gemma3(device, card: str, cfg) -> dict:
+    """Full-width gemma3-1b (26 layers, 5:1 window:global, window 512):
+    served at rank 0 with 2 prompts of 600 tokens at capacity 640 (its
+    window rings roll in prefill and wrap in decode), at rank 8 (4 x 8) and
+    under amr_inject (2 x 4) with 16-token prompts; each run again with
+    request 0 alone and under the profiler.  Then its chunked prefill
+    (``chunked_prefill``).  Returns each run's launch counts."""
+    from repro_torch.numerics import AMRNumerics
+
+    runs = {
+        "rank 0": Run(AMRNumerics("amr_kernel", border=BORDER, rank=0), SLOTS, GEN, GATHERS,
+                      G3_PROMPT, G3_CAPACITY),
+        f"rank {RANK}": Run(AMRNumerics("amr_kernel", border=BORDER, rank=RANK), REQUESTS, GEN,
+                            {"amr_matmul_int8"}),
+        "amr_inject": Run(AMRNumerics("amr_inject", border=BORDER), INJECT_REQUESTS, INJECT_GEN,
+                          {"inject_replay"}),
+    }
+    params = model_params(device, cfg)
+    launches = serve_model(device, card, cfg, params, runs, tuple(runs), tuple(runs), {})
+    chunked_prefill(device, card, cfg, params)
+    return launches
+
+
+def chunked_prefill(device, card: str, cfg, params) -> None:
+    """One full-width gemma3-1b attention layer prefilled at S = 16384 under
+    rank 0, its first window layer (512) and its first global layer: the
+    entry point (``attend_prefill``) takes the chunked form, 8 query blocks
+    of 2048 (two grouped gather launches a block, four flat ones for the
+    projections), and the chunked form equals the one-block form bit for
+    bit (the integer products are exact, and Q and P quantize per row, K
+    and V per column, over the same D and S in both).  Times and peak
+    memory of both forms."""
+    import torch
+
+    from repro_torch.kernels.amr_matmul import kernel
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import dense, embed, rms_norm
+    from repro_torch.numerics import AMRNumerics
+
+    nm = AMRNumerics("amr_kernel", border=BORDER, rank=0)
+    S = G3_CHUNKED_S
+    if not attn.takes_chunked_path(S):
+        raise AssertionError(f"S = {S} does not take the chunked path")
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab, (1, S)))
+    x = embed(params["embed"], tokens.to(device))
+    positions = torch.arange(S, device=device).expand(1, S)
+    kinds = cfg.pattern.kinds
+    for i in (kinds.index("swa"), kinds.index("full")):
+        window = cfg.sliding_window if kinds[i] == "swa" else 0
+        layer = {k: t[0] for k, t in params["layers"][i]["attn"].items()}
+        kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                  theta=cfg.rope_theta, qk_norm=cfg.qk_norm, numerics=nm, eps=cfg.norm_eps)
+        with torch.inference_mode():
+            h = rms_norm(x, params["layers"][i]["ln1"][0], cfg.norm_eps)
+            for kern in kernel.KERNELS:
+                kern.launches = 0
+            out, cache = attn.attend_prefill(layer, h, min(S, window) if window else S,
+                                             window=window, **kw)
+            torch.cuda.synchronize()
+            counts = {kern.name: kern.launches for kern in kernel.KERNELS}
+            want = {"amr_matmul_int8_lut": 4, "amr_matmul_int8_lut_grouped": 2 * S // attn._Q_CHUNK,
+                    "amr_matmul_int8": 0}
+            if counts != want:
+                raise AssertionError(f"gemma3-1b layer {i} prefill at S = {S}: launches "
+                                     f"{counts}, expected {want}")
+            q, k, v = attn._project_qkv(layer, h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                        positions, cfg.rope_theta, cfg.qk_norm, nm, cfg.norm_eps)
+            forms, ms, peak = {}, {}, {}
+            for form, fn in (("chunked", lambda: attn._chunked_attention(
+                                  q, k, v, window, x.dtype, nm)),
+                             ("one block", lambda: attn._attend_rows(
+                                  q, k, v, torch.arange(S, device=device), window, x.dtype,
+                                  nm))):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                forms[form] = fn()
+                torch.cuda.synchronize()
+                ms[form] = (time.perf_counter() - t0) * 1e3
+                peak[form] = torch.cuda.max_memory_allocated() / 2**30
+            equal = torch.equal(forms["chunked"], forms["one block"])
+            entry = dense(forms["chunked"].reshape(1, S, -1), layer["wo"], nm, site="attn.wo")
+            if not equal or not torch.equal(entry, out):
+                diff = float((forms["chunked"].float() - forms["one block"].float()).abs().max())
+                raise AssertionError(f"gemma3-1b layer {i} at S = {S}: chunked and one-block "
+                                     f"attention differ (max |diff| {diff}), or the entry "
+                                     f"point's output is not the chunked form's")
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"gemma3-1b layer {i} at S = {S}: non-finite output")
+        log(f"[chunked] gemma3-1b layer {i} ({kinds[i]}, window {window}) on {card}: prefill "
+            f"of {S} tokens at rank 0, entry point launches {counts}; chunked == one block bit "
+            f"for bit; attention ms chunked {ms['chunked']:.1f}, one block "
+            f"{ms['one block']:.1f}; peak memory chunked {peak['chunked']:.2f} GiB, one block "
+            f"{peak['one block']:.2f} GiB; cache {tuple(cache.k.shape)}")
+        del forms, out, cache, q, k, v, h
 
 
 # kernel families of the profile, by a part of their names: every template
@@ -1210,7 +1391,7 @@ PROFILE_FAMILIES = {"gather kernels": "amr_lut", "low-rank kernel": "amr_lowrank
                     "memsets": "Memset"}
 
 
-def profile_serve(device, card: str, cfg, params, prompts, gen: int) -> None:
+def profile_serve(device, card: str, cfg, params, prompts, gen: int, capacity: int) -> None:
     """Device time by kernel over one engine run of SLOTS requests (their
     prefills and decode steps) under torch.profiler, and the device's idle
     share of the run's wall time (which the profiler's own host cost
@@ -1221,7 +1402,7 @@ def profile_serve(device, card: str, cfg, params, prompts, gen: int) -> None:
 
     from repro_torch.serve import Request, ServeEngine
 
-    eng = ServeEngine(cfg, params, n_slots=SLOTS, capacity=CAPACITY, device=device)
+    eng = ServeEngine(cfg, params, n_slots=SLOTS, capacity=capacity, device=device)
     for p in prompts[:SLOTS]:
         eng.submit(Request(prompt=p, max_new_tokens=gen))
     torch.cuda.synchronize()
@@ -1287,11 +1468,11 @@ def main(argv: list[str] | None = None) -> int:
     device = torch.device("cuda")
     t_start = time.perf_counter()
 
-    from repro_torch.configs import gemma_2b, mamba2_370m
+    from repro_torch.configs import gemma3_1b, gemma_2b, mamba2_370m
 
     phase_build()
     card = card_line()
-    rows = phase_kernels(device, gemma_2b.CONFIG, mamba2_370m.CONFIG)
+    rows = phase_kernels(device, gemma_2b.CONFIG, mamba2_370m.CONFIG, gemma3_1b.CONFIG)
     if args.parent is not None:
         t0 = time.perf_counter()
         phase_ab(args.parent.resolve())
@@ -1305,6 +1486,9 @@ def main(argv: list[str] | None = None) -> int:
         device, attn_cases(device, gemma_2b.CONFIG, gemma_params), int_ops_per_s(device))
     log(f"[attn_fused] phase {time.perf_counter() - t0:.1f}s")
     launches = phase_serve(device, card, gemma_2b.CONFIG, gemma_params, mamba2_370m.CONFIG)
+    t0 = time.perf_counter()
+    launches["gemma3-1b"] = phase_gemma3(device, card, gemma3_1b.CONFIG)
+    log(f"[gemma3-1b] phase {time.perf_counter() - t0:.1f}s")
 
     src = "src/repro_torch/kernels/amr_matmul/csrc/"
     # the gemma-2b decode shape each AMR kernel spends most time on at border
@@ -1347,7 +1531,9 @@ def main(argv: list[str] | None = None) -> int:
                  "launches": launches[model][label][k.name], "max_abs_err": row["max_abs_err"],
                  "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                 "shape": row["shape"]}
+                 "shape": row["shape"],
+                 "launches_gemma3_1b": {label: counts[k.name]
+                                        for label, counts in launches["gemma3-1b"].items()}}
         if model == "attn_fused":
             entry.update(unfused_ms=row["unfused_ms"], op_ms=row["op_ms"],
                          launches_in_served_runs=served[k.name])

@@ -7,6 +7,7 @@ from .base import ModelConfig
 
 _MODULES = {
     "gemma-2b": "gemma_2b",
+    "gemma3-1b": "gemma3_1b",
     "mamba2-370m": "mamba2_370m",
 }
 

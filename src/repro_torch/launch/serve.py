@@ -6,6 +6,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --full --numerics amr_inject
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m --full \
       --numerics amr_kernel --rank 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --full \
+      --numerics amr_kernel --rank 0 --heartbeat build/serve_heartbeat.json
 
 Thin CLI over ``repro_torch.serve.ServeEngine`` with random weights from
 ``--seed``.  ``--numerics`` overrides the config's matmul policy
@@ -13,18 +15,23 @@ Thin CLI over ``repro_torch.serve.ServeEngine`` with random weights from
 cycle (default on) first serves one short request so that the kernel
 build and first launches fall outside the timed window; the report then
 separates prefill and steady-state decode rates from end-to-end time.
+``--heartbeat PATH`` has the timed engine publish its progress to PATH
+(``runtime.fault.Heartbeat``); its decode steps slower than 2.5x the
+running median are printed as stragglers.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
+from pathlib import Path
 
 import numpy as np
 
 from repro_torch.configs.registry import ARCH_NAMES, get_config, get_reduced_config
 from repro_torch.models import init_params
 from repro_torch.numerics import AMRNumerics, mode_names
+from repro_torch.runtime import Heartbeat
 from repro_torch.serve import Request, ServeEngine
 
 
@@ -46,6 +53,8 @@ def main(argv=None) -> None:
                     help="approximate border column for the AMR modes")
     ap.add_argument("--rank", type=int, default=8,
                     help="low-rank error rank; 0 with amr_kernel = full-LUT kernel")
+    ap.add_argument("--heartbeat", default=None,
+                    help="path for the serve heartbeat JSON (runtime.fault)")
     args = ap.parse_args(argv)
 
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
@@ -58,14 +67,17 @@ def main(argv=None) -> None:
     prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab, args.prompt_len))
                for _ in range(args.requests)]
     params = init_params(cfg, args.seed, device=args.device)
-    engine = ServeEngine(cfg, params, n_slots=args.slots,
-                         capacity=args.prompt_len + args.gen, device=args.device)
-    if args.warmup:
-        engine.submit(Request(prompt=prompts[0], max_new_tokens=2))
-        engine.run()
-        engine = ServeEngine(cfg, params, n_slots=args.slots,
-                             capacity=args.prompt_len + args.gen, device=args.device)
 
+    def new_engine(**kw) -> ServeEngine:
+        return ServeEngine(cfg, params, n_slots=args.slots,
+                           capacity=args.prompt_len + args.gen, device=args.device, **kw)
+
+    if args.warmup:
+        warm = new_engine()
+        warm.submit(Request(prompt=prompts[0], max_new_tokens=2))
+        warm.run()
+    engine = new_engine(heartbeat=Heartbeat(Path(args.heartbeat)) if args.heartbeat else None,
+                        log=print)
     for p in prompts:
         engine.submit(Request(prompt=p, max_new_tokens=args.gen))
     t0 = time.monotonic()

@@ -1,18 +1,21 @@
-"""GQA/MQA attention with qk-norm, RoPE and a per-slot KV cache.
+"""GQA/MQA attention with qk-norm, sliding windows, RoPE and a per-slot KV cache.
 
-The port of the JAX package's ``models/attention.py`` for full (global)
-attention layers:
+The port of the JAX package's ``models/attention.py`` for self-attention
+layers, global (``window`` 0) and sliding-window (``window`` > 0):
 
   * ``attend_full``    — training / forward over a whole sequence (causal);
   * ``attend_prefill`` — the same, also building the decode KV cache;
   * ``attend_decode``  — one token per row against the cache.
 
-Cache layout: (batch, capacity, n_kv, head_dim).  Under an approximate
-numerics policy the score (``attn.qk``) and value (``attn.pv``)
-contractions go through the numerics seam with the GQA group folded into
-the row dim; exact numerics keep the plain einsums.  Sliding-window layers
-and the chunked long-prompt path (prompts of 16384 tokens and more) are
-not ported yet and raise.
+Cache layout: (batch, capacity, n_kv, head_dim).  A sliding-window layer's
+cache is a ring: token t lives at slot t % capacity, and once the ring is
+full every slot is live.  Under an approximate numerics policy the score
+(``attn.qk``) and value (``attn.pv``) contractions go through the numerics
+seam with the GQA group folded into the row dim; exact numerics keep the
+plain einsums.  A causal prompt of ``_CHUNKED_THRESHOLD`` tokens or more
+whose length is a multiple of ``_Q_CHUNK`` runs in query blocks
+(``_chunked_attention``), as the JAX package's does; every other length
+runs in one block.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ from repro_torch.numerics import AMRNumerics, approx_matmul
 from .layers import apply_rope, dense, rms_norm
 
 NEG_INF = -2.0e38
-_CHUNKED_THRESHOLD = 16384  # the JAX package switches to chunked attention here
+_Q_CHUNK = 2048             # query-block size of chunked attention
+_CHUNKED_THRESHOLD = 16384  # chunked attention from this prompt length (the JAX package's)
 
 
 def _project_qkv(params, x, n_heads, n_kv, head_dim, positions, theta, qk_norm,
@@ -92,36 +96,65 @@ def _gqa_combine(probs, v, numerics: AMRNumerics | None = None):
     return out.reshape(B, S, Hq, v.shape[-1])
 
 
-def _causal_attention(q, k, v, dtype, numerics):
-    S = q.shape[1]
-    if S >= _CHUNKED_THRESHOLD:
-        raise NotImplementedError(
-            f"prompts of {_CHUNKED_THRESHOLD} tokens and more take the chunked attention "
-            f"path, which is not ported yet (got {S})")
+def takes_chunked_path(S: int) -> bool:
+    """Whether a causal prompt of S tokens runs in query blocks: the JAX
+    package's condition, S >= 16384 and a whole number of 2048-token blocks."""
+    return S >= _CHUNKED_THRESHOLD and S % _Q_CHUNK == 0
+
+
+def _attend_rows(q, k, v, rows, window: int, dtype, numerics):
+    """Queries q (B, Sq, Hq, D) at positions ``rows`` (Sq,) against all of k
+    and v (B, S, Hkv, D): causal, and within ``window`` when it is > 0."""
+    cols = torch.arange(k.shape[1], device=q.device)
+    mask = cols[None, :] <= rows[:, None]
+    if window > 0:
+        mask &= (rows[:, None] - cols[None, :]) < window
     scores = _gqa_scores(q, k, numerics).float()
-    idx = torch.arange(S, device=q.device)
-    mask = idx[None, :] <= idx[:, None]
     scores = torch.where(mask[None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(dtype)
     return _gqa_combine(probs, v, numerics)
 
 
+def _chunked_attention(q, k, v, window: int, dtype, numerics):
+    """Query-block attention (JAX ``_chunked_attention``): blocks of
+    ``_Q_CHUNK`` queries against the whole of K and V, so that no S x S
+    score matrix is held; the Python loop stands for ``lax.scan``.  Each
+    block's products go through the numerics seam.  Queries quantize per
+    row and K, V per column over the same D and S as in one block, so the
+    integer products are those of ``_attend_rows`` over all of S."""
+    S = q.shape[1]
+    outs = [_attend_rows(q[:, i:i + _Q_CHUNK], k, v,
+                         torch.arange(i, i + _Q_CHUNK, device=q.device), window, dtype,
+                         numerics)
+            for i in range(0, S, _Q_CHUNK)]
+    return torch.cat(outs, dim=1)
+
+
+def _causal_attention(q, k, v, window: int, dtype, numerics):
+    S = q.shape[1]
+    if takes_chunked_path(S):
+        return _chunked_attention(q, k, v, window, dtype, numerics)
+    return _attend_rows(q, k, v, torch.arange(S, device=q.device), window, dtype, numerics)
+
+
 def attend_full(params: dict, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
-                theta: float, qk_norm: bool = False, numerics: AMRNumerics | None = None,
-                eps: float = 1e-6) -> torch.Tensor:
-    """Causal self-attention over the full sequence."""
+                theta: float, qk_norm: bool = False, window: int = 0,
+                numerics: AMRNumerics | None = None, eps: float = 1e-6) -> torch.Tensor:
+    """Causal self-attention over the full sequence, within ``window``
+    tokens when it is > 0."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions, theta,
                            qk_norm, numerics, eps)
-    out = _causal_attention(q, k, v, x.dtype, numerics)
+    out = _causal_attention(q, k, v, window, x.dtype, numerics)
     return dense(out.reshape(B, S, n_heads * head_dim), params["wo"], numerics,
                  site="attn.wo")
 
 
 @dataclasses.dataclass
 class KVCache:
-    """KV cache; ``length`` = logical tokens written so far.
+    """KV cache, ring-buffered for sliding-window layers; ``length`` =
+    logical tokens written so far.
 
     ``length`` is a scalar (one shared position) or a (B,) vector of
     per-slot positions (continuous batching: each row is a request admitted
@@ -141,18 +174,21 @@ class KVCache:
 
 
 def attend_decode(params: dict, x: torch.Tensor, cache: KVCache, *, n_heads: int, n_kv: int,
-                  head_dim: int, theta: float, qk_norm: bool = False,
+                  head_dim: int, theta: float, qk_norm: bool = False, window: int = 0,
                   numerics: AMRNumerics | None = None,
                   eps: float = 1e-6) -> tuple[torch.Tensor, KVCache]:
     """One decode step, x: (B, 1, d_model): write K/V at each row's cache
-    slot, attend over the valid slots.  All position math is row-wise, so a
-    batched step computes what each request's solo decode would."""
+    slot, attend over the valid slots.  A sliding-window layer (``window``
+    > 0) writes slot pos % C and, once its ring is full, attends over every
+    slot; a global layer writes slot min(pos, C - 1).  All position math is
+    row-wise, so a batched step computes what each request's solo decode
+    would."""
     B = x.shape[0]
     C = cache.k.shape[1]
     pos_b = cache.length.to(torch.int32).expand(B)
     q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, pos_b[:, None], theta,
                            qk_norm, numerics, eps)
-    slot = torch.clamp(pos_b, max=C - 1)
+    slot = pos_b % C if window > 0 else torch.clamp(pos_b, max=C - 1)
     # masked select rather than an indexed write: the new cache is a fresh
     # tensor, as the JAX package's functional update is
     hit = (torch.arange(C, device=x.device)[None, :] == slot[:, None])[:, :, None, None]
@@ -161,6 +197,8 @@ def attend_decode(params: dict, x: torch.Tensor, cache: KVCache, *, n_heads: int
 
     scores = _gqa_scores(q, new_k, numerics).float()            # (B, Hq, 1, C)
     valid = torch.arange(C, device=x.device)[None, :] <= slot[:, None]
+    if window > 0:
+        valid |= pos_b[:, None] >= C  # a full ring: every slot is live
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = _gqa_combine(probs, new_v, numerics).reshape(B, 1, n_heads * head_dim)
@@ -169,20 +207,26 @@ def attend_decode(params: dict, x: torch.Tensor, cache: KVCache, *, n_heads: int
 
 
 def attend_prefill(params: dict, x: torch.Tensor, capacity: int, *, n_heads: int, n_kv: int,
-                   head_dim: int, theta: float, qk_norm: bool = False,
+                   head_dim: int, theta: float, qk_norm: bool = False, window: int = 0,
                    numerics: AMRNumerics | None = None,
                    eps: float = 1e-6) -> tuple[torch.Tensor, KVCache]:
-    """Full-sequence attention that also builds the decode KV cache
-    (capacity >= S), handing the prompt over to decode."""
+    """Full-sequence attention that also builds the decode KV cache, handing
+    the prompt over to decode.  A global layer needs capacity >= S and pads;
+    a sliding-window layer whose capacity C (its ring) is at most S keeps
+    the last C tokens, token t at slot t % C."""
     B, S, _ = x.shape
-    if capacity < S:
+    if capacity < S and window <= 0:
         raise ValueError(f"cache capacity {capacity} is shorter than the prompt ({S})")
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions, theta,
                            qk_norm, numerics, eps)
-    out = _causal_attention(q, k, v, x.dtype, numerics)
+    out = _causal_attention(q, k, v, window, x.dtype, numerics)
     out = dense(out.reshape(B, S, n_heads * head_dim), params["wo"], numerics, site="attn.wo")
-    pad = (0, 0, 0, 0, 0, capacity - S)
-    cache = KVCache(torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad),
-                    torch.tensor(S, dtype=torch.int32, device=x.device))
-    return out, cache
+    C = capacity
+    if window > 0 and C <= S:
+        k_c = torch.roll(k[:, -C:], S % C, dims=1)
+        v_c = torch.roll(v[:, -C:], S % C, dims=1)
+    else:
+        pad = (0, 0, 0, 0, 0, C - S)
+        k_c, v_c = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+    return out, KVCache(k_c, v_c, torch.tensor(S, dtype=torch.int32, device=x.device))

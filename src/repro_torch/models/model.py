@@ -5,8 +5,11 @@ The port of the dense and Mamba2 parts of the JAX package's
 packages can compute on the same weights (``convert.params_from_numpy``):
 
   {"embed": (V, D), "final_norm": (D,),
-   "layers": ({"ln1", "ln2", "attn": {...}, "mlp": {...}},)}   # "full" layers
+   "layers": ({"ln1", "ln2", "attn": {...}, "mlp": {...}},)}   # "full", "swa" layers
    "layers": ({"ln1", "ln2", "ssm": {...}},)                    # "ssm" layers
+
+A "swa" layer is a "full" one that attends within ``cfg.sliding_window``
+tokens; its decode cache is a ring of min(capacity, window) slots.
 
 ``layers`` holds one dict per layer kind of a group, its leaves stacked
 over the group's ``n_repeat`` copies.  Where the JAX package scans over the
@@ -30,7 +33,7 @@ from . import ssm as ssm_lib
 from .layers import embed, mlp, rms_norm, unembed
 from .tree import tree_map
 
-_KINDS = ("full", "ssm")
+_KINDS = ("full", "swa", "ssm")
 
 
 def group_structure(cfg: ModelConfig) -> tuple[tuple[str, ...], int]:
@@ -134,10 +137,18 @@ def _layer(params: dict, g: int) -> dict:
     return tree_map(lambda t: t[g], params)
 
 
-def _attn_kwargs(cfg: ModelConfig) -> dict:
+def _attn_kwargs(cfg: ModelConfig, kind: str) -> dict:
     return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-                theta=cfg.rope_theta, qk_norm=cfg.qk_norm, numerics=cfg.numerics,
-                eps=cfg.norm_eps)
+                theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+                window=cfg.sliding_window if kind == "swa" else 0,
+                numerics=cfg.numerics, eps=cfg.norm_eps)
+
+
+def _kv_capacity(cfg: ModelConfig, kind: str, capacity: int) -> int:
+    """A sliding-window layer's ring holds at most its window."""
+    if kind == "swa" and cfg.sliding_window:
+        return min(capacity, cfg.sliding_window)
+    return capacity
 
 
 def _head(cfg: ModelConfig, params: dict) -> torch.Tensor:
@@ -158,7 +169,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                 x = x + ssm_lib.ssm_forward(lp["ssm"], h, cfg.d_model, cfg.ssm, cfg.numerics,
                                             cfg.norm_eps)
                 continue
-            x = x + attn.attend_full(lp["attn"], h, **_attn_kwargs(cfg))
+            x = x + attn.attend_full(lp["attn"], h, **_attn_kwargs(cfg, kind))
             h = rms_norm(x, lp["ln2"], cfg.norm_eps)
             x = x + mlp(lp["mlp"], h, cfg.mlp_act, cfg.numerics)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -170,7 +181,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device: torch.device,
                per_slot: bool = False) -> tuple:
     """One ``KVCache`` (or ``SSMState`` for an SSM layer) per layer kind,
-    leaves stacked over n_repeat.
+    leaves stacked over n_repeat; a sliding-window kind's ring holds
+    min(capacity, window) slots.
 
     ``per_slot=True`` gives each batch row its own position (``length`` of
     shape (n_repeat, B)): the continuous-batching slot cache.  An SSM state
@@ -182,8 +194,8 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device: torch.dev
         if kind == "ssm":
             c = ssm_lib.SSMState.zeros(batch, cfg.d_model, cfg.ssm, _dtype(cfg), device)
         else:
-            c = attn.KVCache.zeros(batch, capacity, cfg.n_kv_heads, cfg.head_dim,
-                                   _dtype(cfg), device, per_slot=per_slot)
+            c = attn.KVCache.zeros(batch, _kv_capacity(cfg, kind, capacity), cfg.n_kv_heads,
+                                   cfg.head_dim, _dtype(cfg), device, per_slot=per_slot)
         return tree_map(lambda t: t.expand(n_repeat, *t.shape).clone(), c)
 
     return tuple(one(k) for k in kinds)
@@ -228,7 +240,8 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor, cache: tupl
                 x = x + y
                 new.append(c)
                 continue
-            y, c = attn.attend_decode(lp["attn"], h, _layer(cache[i], g), **_attn_kwargs(cfg))
+            y, c = attn.attend_decode(lp["attn"], h, _layer(cache[i], g),
+                                      **_attn_kwargs(cfg, kind))
             x = x + y
             h = rms_norm(x, lp["ln2"], cfg.norm_eps)
             x = x + mlp(lp["mlp"], h, cfg.mlp_act, cfg.numerics)
@@ -258,7 +271,8 @@ def prefill_with_cache(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                 x = x + y
                 caches.append(c)
                 continue
-            y, c = attn.attend_prefill(lp["attn"], h, capacity, **_attn_kwargs(cfg))
+            y, c = attn.attend_prefill(lp["attn"], h, _kv_capacity(cfg, kind, capacity),
+                                       **_attn_kwargs(cfg, kind))
             x = x + y
             h = rms_norm(x, lp["ln2"], cfg.norm_eps)
             x = x + mlp(lp["mlp"], h, cfg.mlp_act, cfg.numerics)

@@ -14,11 +14,17 @@ integer AMR sums are exact, and the low-rank kernel sums in an order fixed
 by K), so a request decoded in a busy engine yields the same tokens as the
 same request served alone.
 
-Not ported yet: the Heartbeat and StragglerMonitor fault wiring.
+Fault wiring: an optional ``Heartbeat`` (runtime.fault) publishes
+queue/slot/step progress after each admit and each decode step for
+external watchdogs, and a ``StragglerMonitor`` flags decode steps slower
+than the running median, so a host-side stall shows up as flagged steps
+(``stats()["stragglers"]``, and a ``log`` line) rather than as silent tail
+latency.
 """
 from __future__ import annotations
 
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -27,6 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import init_cache, prefill_with_cache
 from repro_torch.models.tree import tree_map
+from repro_torch.runtime.fault import Heartbeat, StragglerMonitor
 from repro_torch.train.steps import make_serve_step
 
 from .request import Completion, Request, RequestQueue
@@ -53,7 +60,10 @@ class ServeEngine:
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, *, n_slots: int, capacity: int,
-                 record_logits: bool = False, device: str | torch.device = "cuda"):
+                 record_logits: bool = False, device: str | torch.device = "cuda",
+                 heartbeat: Heartbeat | None = None,
+                 straggler: StragglerMonitor | None = None,
+                 log: Callable[[str], None] | None = None):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params lie on {params['embed'].device}, the engine on "
@@ -65,6 +75,9 @@ class ServeEngine:
         self.record_logits = record_logits
         self.queue = RequestQueue()
         self.slots = SlotAllocator(n_slots)
+        self.heartbeat = heartbeat
+        self.straggler = straggler if straggler is not None else StragglerMonitor()
+        self._log = log or (lambda msg: None)
 
         self.cache = init_cache(cfg, n_slots, capacity, device=self.device, per_slot=True)
         self._active = np.zeros(n_slots, bool)
@@ -98,15 +111,35 @@ class ServeEngine:
     def run(self, max_steps: int | None = None) -> list[Completion]:
         """Drive admit/decode until the queue and all slots drain (or
         ``max_steps`` decode steps ran).  Returns completions in uid order."""
-        steps = 0
-        while self.queue or self._active.any():
-            self._admit()
-            if self._active.any():
-                self._decode_once()
-                steps += 1
-                if max_steps is not None and steps >= max_steps:
-                    break
+        if self.heartbeat is not None:
+            self.heartbeat.start()
+        try:
+            steps = 0
+            while self.queue or self._active.any():
+                self._admit()
+                if self._active.any():
+                    self._decode_once()
+                    steps += 1
+                    if max_steps is not None and steps >= max_steps:
+                        break
+        finally:
+            if self.heartbeat is not None:
+                self._beat()
+                self.heartbeat.stop()
         return sorted(self.completions, key=lambda c: c.uid)
+
+    def _beat(self) -> None:
+        if self.heartbeat is None:
+            return
+        self.heartbeat.payload = {
+            "step": self.steps_done,
+            "active_slots": int(self._active.sum()),
+            "queued": len(self.queue),
+            "completed": len(self.completions),
+        }
+        # written now, not at the timer's next tick: liveness on disk tracks
+        # the scheduler's progress
+        self.heartbeat.beat()
 
     def _admit(self) -> None:
         """Admit queued requests into free slots, FIFO order."""
@@ -128,6 +161,7 @@ class ServeEngine:
             self._active[slot] = True
             self._next_tok[slot] = first
             self._maybe_finish(slot)
+            self._beat()
 
     def _decode_once(self) -> None:
         """One masked decode step for every live slot."""
@@ -144,15 +178,20 @@ class ServeEngine:
             next_tok, self.cache = out
             logits_host = None
         tok_host = next_tok.cpu().numpy()  # waits for the step: true step time
-        self.decode_seconds += time.monotonic() - t0
+        dt = time.monotonic() - t0
+        self.decode_seconds += dt
         self.steps_done += 1
         self.decode_tokens += int(self._active.sum())
+        if self.straggler.observe(self.steps_done, dt):
+            self._log(f"[serve] step {self.steps_done}: straggler ({dt * 1e3:.1f}ms vs "
+                      f"median {self.straggler.median() * 1e3:.1f}ms)")
         for slot in np.flatnonzero(self._active):
             self._slot_toks[slot].append(int(tok_host[slot]))
             if logits_host is not None:
                 self._slot_logits[slot].append(logits_host[slot])
             self._next_tok[slot] = int(tok_host[slot])
             self._maybe_finish(slot)
+        self._beat()
 
     # ------------------------------------------------------------ finish
     def _maybe_finish(self, slot: int) -> None:
@@ -184,4 +223,5 @@ class ServeEngine:
             "completed": len(self.completions),
             "active_slots": int(self._active.sum()),
             "queued": len(self.queue),
+            "stragglers": len(self.straggler.flagged),
         }

@@ -151,6 +151,18 @@ GATHER_SHAPES = [(1, m, k, n) for m in (1, 2, 16)
 GATHER_SHAPES += [(2, 8, 256, 24), (2, 8, 24, 256), (1, 8, 256, 24), (1, 8, 24, 256),
                   (1, 128, 256, 16), (1, 128, 16, 256), (64, 1, 128, 64), (32, 1, 128, 64),
                   (32, 256, 128, 64)]
+# gemma3-1b (d_model 1152, d_ff 6912, 1 KV head and 4 query heads of 256):
+# the dense sites at decode over 1 and 2 slots, in a 16-token and a
+# 600-token prefill; attn.qk / attn.pv at decode against a 512-slot window
+# ring, a 640-slot global cache and a 24-slot cache, in both prefills, and
+# one 2048-query block of the chunked prefill at S = 16384
+GATHER_SHAPES += [(1, m, k, n) for m in (1, 2, 16, 600)
+                  for k, n in ((1152, 6912), (6912, 1152), (1152, 256), (1152, 1024),
+                               (1024, 1152))]
+GATHER_SHAPES += [(g, 4, k, n) for g in (1, 2) for t in (512, 640, 24)
+                  for k, n in ((256, t), (t, 256))]
+GATHER_SHAPES += [(1, 64, 256, 16), (1, 64, 16, 256), (1, 2400, 256, 600), (1, 2400, 600, 256),
+                  (1, 8192, 256, 16384), (1, 8192, 16384, 256)]
 SM90_SMEM_PER_BLOCK = 227 * 1024
 
 

@@ -111,7 +111,35 @@ Phases (any failure raises, and the run exits non-zero):
    under rank 0: the entry point takes the chunked form (8 query blocks,
    two grouped gather launches each), whose output equals the one-block
    form's bit for bit.  Phase 2 holds the kernels at gemma3-1b's shapes
-   too, and phase 3 serves reduced gemma3-1b (window 8) on card and CPU.
+   too, and phase 3 serves reduced gemma3-1b (window 8) on card and CPU;
+9. train — (a) reduced amr-paper-100m in float32 trained on the card
+   (kernels) and on the CPU (plain versions) from the same weights on the
+   same ``SyntheticLM`` batches under its four training policies
+   (amr_lowrank border 8 rank 16, amr_kernel rank 0 and rank 8, amr_inject):
+   one step's gradients and two AdamW steps' losses (rank 0 and amr_inject,
+   integer products: loss within 1e-4 relative, each gradient leaf within
+   1e-3 of its max; rank 8 and amr_lowrank, whose float sums may put an
+   int8 index at a rounding tie and move every later layer: loss within
+   1e-2 relative, gradients by the correlation rule of
+   tests/test_torch_gemma3.py); in every mode the forward's int8
+   quantizations call by call: the indices agree until the first call
+   where one moves, and the rounded values within 1e-3 int8 steps until
+   and at it; the same mode at border 0 (no error lanes) must fail that
+   rule on the CPU; (b) full-width
+   amr-paper-100m (12 layers, d_model 768, vocab 32000) at batch 8, seq 256
+   under the four policies, and full-width gemma3-1b at rank 8, batch 2, seq
+   512, remat "block" and "none": a warm step and 3 timed ones, launch
+   counts set to 0 before and read after (rank 0 the two gathers, rank 8 the
+   low-rank kernel, amr_inject the replay kernel, amr_lowrank none; each a
+   step one forward's count, twice under "block"), finite losses and
+   gradient norms, ms per step, tokens/s, peak memory and the idle share of
+   one profiled step; (c) ``FaultTolerantLoop`` on full-width amr-paper-100m
+   under amr_inject, 4 steps straight and 2 + a raised failure + a restore
+   + 2: the float32 losses and every leaf of the final state bit for bit;
+   (d) with phase 2, the gathers, the low-rank and the replay kernel at
+   amr-paper-100m's training shapes (M = 2048; (768, 768), (768, 3072),
+   (3072, 768); attn.qk / attn.pv over 96 groups of 256 x 64 x 256), border
+   8, against their plain versions (``training_kernel_rows``).
 
 Bounds: the larger of the bytes over 3.35 TB/s and the operations over the
 peak rate of their type: float32 67 T/s (the H100 SXM data sheet, an FMA
@@ -426,7 +454,10 @@ def phase_kernels(device, cfg, mamba_cfg, g3_cfg) -> dict:
     rows["replay"] = [dict(model=c.name, **r) for c in (cfg, g3_cfg)
                       for r in replay_kernel_rows(device, *path_shapes(c), int_rate)]
     rows["ssd"] = ssd_kernel_rows(device, mamba_cfg)
+    rows["train_shapes"] = training_kernel_rows(device, int_rate)
     for name, rs in rows.items():
+        if name == "train_shapes":
+            continue
         for r in rs:
             log(f"[kernel] {name} " + json.dumps(r))
     return rows
@@ -1383,6 +1414,432 @@ def chunked_prefill(device, card: str, cfg, params) -> None:
         del forms, out, cache, q, k, v, h
 
 
+# ------------------------------------------------------------------ training
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 3  # amr-paper-100m: 2048 tokens a step
+G3_TRAIN_BATCH, G3_TRAIN_SEQ = 2, 512            # gemma3-1b: 1024 tokens a step
+# phase 9a, card vs CPU: the loss, relative, where the AMR products are integer
+# sums (rank 0, amr_inject) and where they are float sums whose int8 indices
+# may sit at a rounding tie (rank 8, amr_lowrank: the card sums in another
+# order, and a moved index moves every later layer); a gradient leaf's max
+# |card - CPU| over its max |CPU| (integer sums; float sums take the
+# correlation rule).  In every mode the forward's quantizations, call by
+# call: the rounded values x / scale within PARITY_TRACE_TOL int8 steps
+# until and at the first call where an index moves (``_trace_rule``)
+PARITY_LOSS_RTOL, PARITY_LOSS_RTOL_FLOAT_SUMS = 1e-4, 1e-2
+PARITY_GRAD_TOL = 1e-3
+PARITY_TRACE_TOL = 1e-3
+
+
+def train_policies(amr_cfg) -> dict:
+    """amr-paper-100m's four training policies: its own (amr_lowrank, border
+    8, rank 16) and amr_kernel rank 0, rank 8 and amr_inject at border 8:
+    (numerics, the hand kernels it must launch and no other, whether its
+    products are float sums whose int8 indices may sit at a rounding tie)."""
+    from repro_torch.numerics import AMRNumerics
+
+    return {"amr_lowrank r16": (amr_cfg.numerics, set(), True),
+            "rank 0": (AMRNumerics("amr_kernel", border=BORDER, rank=0), GATHERS, False),
+            f"rank {RANK}": (AMRNumerics("amr_kernel", border=BORDER, rank=RANK),
+                             {"amr_matmul_int8"}, True),
+            "amr_inject": (AMRNumerics("amr_inject", border=BORDER), {"inject_replay"}, False)}
+
+
+def _train_batch(data, i: int, device) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(v).to(device) for k, v in data.batch_at(i).items()}
+
+
+def _leaf_rule(got, want, statistical: bool) -> tuple[bool, float, str]:
+    """A gradient leaf card vs CPU: max |diff| <= PARITY_GRAD_TOL * max |CPU|,
+    or, for the float products whose int8 indices may sit at a rounding tie
+    (rank 8, amr_lowrank: other summation orders on the card), the
+    correlation rule of tests/test_torch_gemma3.py (correlation >= 0.98,
+    mean |diff| <= 0.15 mean |CPU|).  Returns (held, max |diff| / max
+    |CPU|, what was read)."""
+    g, w = got.detach().float().cpu().numpy().ravel(), want.detach().float().numpy().ravel()
+    diff = np.abs(g - w)
+    rel = float(diff.max()) / max(float(np.abs(w).max()), 1e-30)
+    if not np.isfinite(g).all():
+        return False, rel, "non-finite gradient"
+    if statistical:
+        corr = float(np.corrcoef(g, w)[0, 1]) if w.std() > 0 else 1.0
+        return (corr >= 0.98 and diff.mean() <= 0.15 * np.abs(w).mean(), rel,
+                f"correlation {corr}, mean |diff| {diff.mean()} vs mean |CPU| {np.abs(w).mean()}")
+    return rel <= PARITY_GRAD_TOL, rel, f"max |diff| {rel} of max |CPU|"
+
+
+def _trace_rule(got: list, want: list) -> dict:
+    """Two ``record_quantizations`` traces of one forward, call by call: the
+    int8 indices agree until the first call where one moves, and the
+    rounded values differ by at most PARITY_TRACE_TOL int8 steps in every
+    call until and at that one, so a moved index sat within that distance
+    of a rounding tie.  Returns ``ok`` and what was read: the calls, the
+    first with a moved index (None: none moved), its moved indices and the
+    largest distance of their CPU values from a tie, the largest difference
+    of rounded values up to it, and the calls with a moved index."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} quantizations against {len(want)}")
+    out = {"calls": len(want), "first_moved": None, "moved": 0, "tie_distance": None,
+           "max_step_diff": 0.0,
+           "calls_moved": sum(bool((qg != qw).any()) for (_, qg), (_, qw) in zip(got, want))}
+    for i, ((xg, qg), (xw, qw)) in enumerate(zip(got, want)):
+        if xg.shape != xw.shape:
+            raise AssertionError(f"quantization {i}: shapes {tuple(xg.shape)} vs {tuple(xw.shape)}")
+        out["max_step_diff"] = max(out["max_step_diff"], float((xg - xw).abs().max()))
+        moved = qg != qw
+        if moved.any():
+            at = xw[moved]
+            out.update(first_moved=i, moved=int(moved.sum()),
+                       tie_distance=float(((at - at.floor()) - 0.5).abs().max()))
+            break
+    out["ok"] = out["max_step_diff"] <= PARITY_TRACE_TOL
+    return out
+
+
+def _parity_run(cfg, params, data, dev) -> tuple[list, object, list]:
+    """Reduced ``cfg`` on ``dev`` from a copy of ``params``: the quantization
+    trace of one forward (no grad) on batch 0, the gradients of one step on
+    it, and the losses of two AdamW steps on batches 0 and 1."""
+    import torch
+
+    from repro_torch.models.tree import tree_map
+    from repro_torch.numerics.quant import record_quantizations
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.steps import TrainState, loss_fn, make_grads_step, make_train_step
+
+    p = tree_map(lambda t: t.to(dev, copy=True), params)
+    batch = _train_batch(data, 0, dev)
+    with torch.no_grad(), record_quantizations() as rec:
+        loss_fn(cfg, p, batch["tokens"], batch["targets"])
+    trace = [(xs.cpu(), q.cpu()) for xs, q in rec]
+    grads = make_grads_step(cfg)(p, batch)
+    state = TrainState(p, adamw_init(p), torch.zeros((), dtype=torch.int32, device=dev))
+    step = make_train_step(cfg, peak_lr=3e-3, warmup=1, total_steps=10)
+    losses = []
+    for i in range(2):
+        state, m = step(state, _train_batch(data, i, dev))
+        losses.append(float(m["loss"]))
+    return trace, grads, losses
+
+
+def _loss_and_grad_rules(l_got, l_want, g_got, g_want, rtol: float,
+                         statistical: bool) -> list[str]:
+    """The loss and gradient rules of phase 9a: what failed (empty: held)."""
+    from repro_torch.models.tree import tree_items
+
+    failed = [f"losses {l_got} vs {l_want}" for a, b in zip(l_got, l_want)
+              if not (math.isfinite(a) and abs(a - b) <= rtol * abs(b))][:1]
+    want = dict(tree_items(g_want))
+    for key, g in tree_items(g_got):
+        held, _, detail = _leaf_rule(g, want[key], statistical)
+        if not held:
+            failed.append(f"{key}: {detail}")
+    return failed
+
+
+def phase_train_parity(device) -> None:
+    """Phase 9a: reduced amr-paper-100m in float32 on the card (kernels) and
+    on the CPU (plain versions), the same weights (``init_params`` on the CPU,
+    moved) and the same ``SyntheticLM`` batches, under each training policy:
+    the quantizations of one forward (``_trace_rule``), the gradients of one
+    step and the losses of two AdamW steps.  For the float-sum modes a
+    control on the CPU, the same mode at border 0 (no error lanes: exact
+    int8 products), must fail the trace rule, which shows that the rule
+    tells the two apart; whether the loss and gradient rules alone would
+    have passed it is printed."""
+    import torch
+
+    from repro_torch.configs import amr_paper
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.models.tree import tree_items
+
+    cfg = dataclasses.replace(amr_paper.reduced(), dtype="float32")
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=32, batch=4, seed=0)
+    params = init_params(cfg, 0, device="cpu")
+    cpu = torch.device("cpu")
+    for label, (nm, _, statistical) in train_policies(amr_paper.CONFIG).items():
+        c = dataclasses.replace(cfg, numerics=nm)
+        t_cpu, g_cpu, l_cpu = _parity_run(c, params, data, cpu)
+        t_card, g_card, l_card = _parity_run(c, params, data, device)
+        trace = _trace_rule(t_card, t_cpu)
+        if not trace["ok"]:
+            raise AssertionError(f"[train] parity {label}: quantizations card vs CPU {trace}")
+        rtol = PARITY_LOSS_RTOL_FLOAT_SUMS if statistical else PARITY_LOSS_RTOL
+        failed = _loss_and_grad_rules(l_card, l_cpu, g_card, g_cpu, rtol, statistical)
+        if failed:
+            raise AssertionError(f"[train] parity {label}: {failed}")
+        want = dict(tree_items(g_cpu))
+        worst = max(_leaf_rule(g, want[k], statistical)[1] for k, g in tree_items(g_card))
+        log(f"[train] parity reduced amr-paper-100m f32 {label}: quantizations card vs CPU "
+            f"{trace}; losses card {l_card} vs CPU {l_cpu} (rtol {rtol}); gradients: max over "
+            f"leaves of max |diff| / max |CPU| {worst:.3g} "
+            f"({'correlation rule' if statistical else f'<= {PARITY_GRAD_TOL}'})")
+        if statistical:
+            control = dataclasses.replace(cfg, numerics=dataclasses.replace(nm, border=0))
+            t_ctl, g_ctl, l_ctl = _parity_run(control, params, data, cpu)
+            ctl = _trace_rule(t_ctl, t_cpu)
+            if ctl["ok"]:
+                raise AssertionError(f"[train] parity {label}: the trace rule passes the border-0 "
+                                     f"control {ctl}")
+            ctl_failed = _loss_and_grad_rules(l_ctl, l_cpu, g_ctl, g_cpu, rtol, statistical)
+            log(f"[train] parity {label} control at border 0 on the CPU: quantizations vs "
+                f"border {nm.border} {ctl} (rejected); the loss and gradient rules alone "
+                f"{'reject it: ' + '; '.join(ctl_failed[:3]) if ctl_failed else 'would pass it'} "
+                f"(losses {l_ctl})")
+
+
+def _profiled_step(step, state, batch) -> tuple:
+    """One more train step under torch.profiler: (state, wall ms, device busy ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA) / 1e3
+    if busy <= 0:
+        raise AssertionError("the profiler recorded no device time in a train step")
+    return state, wall, busy
+
+
+def train_run(device, card: str, cfg, label: str, uses: set, batch: int, seq: int) -> dict:
+    """One training run of full-width ``cfg`` (random weights from seed 0):
+    a warm step and TRAIN_STEPS timed steps on SyntheticLM batches.  The
+    launch counts are set to 0 before the run and read after it: the kernels
+    in ``uses`` launch, no other; each launches, per step, the count of one
+    forward (run alone, under no_grad, on the first batch) times 2 under
+    ``remat="block"`` (the recompute) and times 1 under ``"none"``.  Losses
+    and gradient norms finite.  Then one more step under the profiler.
+    Returns the launches per step by kernel."""
+    import torch
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import forward
+    from repro_torch.train.steps import make_train_state, make_train_step
+
+    kernels = all_kernels()
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch, seed=0)
+    state = make_train_state(cfg, 0, device=device)
+    step = make_train_step(cfg)
+    for k in kernels:
+        k.launches = 0
+    with torch.no_grad():
+        forward(cfg, state.params, _train_batch(data, 0, device)["tokens"])
+    torch.cuda.synchronize()
+    per_forward = {k.name: k.launches for k in kernels}
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, norms = [], [], []
+    for i in range(1 + TRAIN_STEPS):
+        b = _train_batch(data, i, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    counts = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mult = 2 if cfg.remat == "block" else 1
+    for name, n in counts.items():
+        if (name in uses) != (n > 0) or n != (1 + TRAIN_STEPS) * mult * per_forward[name]:
+            raise AssertionError(f"[train] {cfg.name} {label} remat {cfg.remat}: kernel {name} "
+                                 f"launched {n} times in {1 + TRAIN_STEPS} steps; one forward "
+                                 f"launches it {per_forward[name]} times")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"[train] {cfg.name} {label}: losses {losses}, grad norms {norms}")
+    ms = float(np.median(times[1:])) * 1e3
+    state, wall, busy = _profiled_step(step, state, _train_batch(data, 1 + TRAIN_STEPS, device))
+    per_step = {k: n // (1 + TRAIN_STEPS) for k, n in counts.items() if n}
+    log(f"[train] {cfg.name} {label} remat {cfg.remat} on {card}: {batch} x {seq} tokens a step, "
+        f"{ms:.1f} ms per step (median of {TRAIN_STEPS} after a warm step of "
+        f"{times[0] * 1e3:.0f} ms), {batch * seq / (ms / 1e3):.0f} tokens/s, peak memory "
+        f"{peak:.2f} GiB; profiled step {wall:.1f} ms wall, device busy {busy:.1f} ms (idle "
+        f"share {1 - busy / wall:.3f}); losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 3) for x in norms]}; launches per step {per_step}")
+    del state
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def phase_train_full(device, card: str) -> dict:
+    """Phase 9b: full-width amr-paper-100m (12 layers, d_model 768, vocab
+    32000) at batch 8, seq 256 under its four training policies, then
+    full-width gemma3-1b at rank 8, batch 2, seq 512, remat "block" and
+    "none".  Returns each run's launches per step by label."""
+    from repro_torch.configs import amr_paper, gemma3_1b
+    from repro_torch.numerics import AMRNumerics
+
+    runs = {}
+    for label, (nm, uses, _) in train_policies(amr_paper.CONFIG).items():
+        cfg = dataclasses.replace(amr_paper.CONFIG, numerics=nm)
+        runs[f"amr-paper-100m {label}"] = train_run(device, card, cfg, label, uses,
+                                                    TRAIN_BATCH, TRAIN_SEQ)
+    for remat in ("block", "none"):
+        cfg = dataclasses.replace(gemma3_1b.CONFIG, remat=remat,
+                                  numerics=AMRNumerics("amr_kernel", border=BORDER, rank=RANK))
+        runs[f"gemma3-1b rank {RANK} remat {remat}"] = train_run(
+            device, card, cfg, f"rank {RANK}", {"amr_matmul_int8"}, G3_TRAIN_BATCH, G3_TRAIN_SEQ)
+    return runs
+
+
+def phase_train_restart(device) -> None:
+    """Phase 9c: ``FaultTolerantLoop`` on full-width amr-paper-100m under
+    amr_inject, checkpoints every 2 steps: 4 steps straight through, then 2
+    steps, a raised failure, a restore from the step-2 checkpoint and 2 more.
+    The float32 losses and every leaf of the final states equal bit for bit."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import amr_paper
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.tree import tree_items
+    from repro_torch.numerics import AMRNumerics
+    from repro_torch.runtime import FaultTolerantLoop
+    from repro_torch.train.steps import make_train_state, make_train_step
+
+    cfg = dataclasses.replace(amr_paper.CONFIG, numerics=AMRNumerics("amr_inject", border=BORDER))
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
+    step = make_train_step(cfg)
+
+    def run(fail: bool):
+        losses, failed = {}, []
+
+        def step_fn(state, batch):
+            i = int(state.step)
+            if fail and i == 2 and not failed:
+                failed.append(i)
+                raise RuntimeError("injected node failure")
+            state, m = step(state, batch)
+            losses[i] = float(m["loss"])
+            return state, m
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+            t0 = time.perf_counter()
+            loop = FaultTolerantLoop(
+                ckpt_dir=ckpt, make_state=lambda: make_train_state(cfg, 0, device=device),
+                step_fn=step_fn, batch_at=lambda i: _train_batch(data, i, device),
+                ckpt_every=2, keep=1)
+            res = loop.run(4, log=log)
+            seconds = time.perf_counter() - t0
+        if res.steps_done != 4 or res.restarts != int(fail) or res.preempted:
+            raise AssertionError(f"[restart] {res.steps_done} steps, {res.restarts} restarts")
+        return res.final_state, losses, seconds
+
+    straight, l_straight, s1 = run(False)
+    restarted, l_restarted, s2 = run(True)
+    if l_straight != l_restarted:
+        raise AssertionError(f"[restart] losses straight {l_straight} vs restarted {l_restarted}")
+    items = tree_items(restarted)
+    for key, a in tree_items(straight):
+        if not torch.equal(a, dict(items)[key]):
+            raise AssertionError(f"[restart] leaf {key} differs after the restart")
+    log(f"[restart] amr-paper-100m amr_inject: 4 steps straight ({s1:.1f}s) and 2 + failure + "
+        f"restore + 2 ({s2:.1f}s): losses {l_straight} bit for bit, all {len(items)} leaves of "
+        f"the final state bit for bit")
+
+
+def training_kernel_rows(device, int_rate: float) -> list[dict]:
+    """Phase 9d (printed with phase 2): the gathers (flat and grouped), the
+    low-rank kernel (rank 8) and the replay kernel (flat and grouped) at
+    amr-paper-100m's training shapes, border 8: M = 8 x 256 = 2048 rows of
+    (768, 768), (768, 3072) and (3072, 768), and attn.qk / attn.pv over
+    (batch x 12 heads, 256 queries, 64, 256).  The gathers and the replay
+    bit for bit against their plain versions (the replay also against the
+    gather kernel), the low-rank kernel within 1e-5 * max_mn sum_k (|a b| +
+    sum_r |u v|) of its plain version and K * sigma_(r+1) of the exact sums;
+    event ms of the kernel, ms of the one plain call, and the bound."""
+    import torch
+
+    from repro_torch.configs import amr_paper
+    from repro_torch.core import engine, lut
+    from repro_torch.kernels.amr_matmul import kernel, ops, ref
+    from repro_torch.kernels.inject_replay import kernel as rkernel
+    from repro_torch.kernels.inject_replay import ref as rref
+
+    cfg = amr_paper.CONFIG
+    gen = torch.Generator(device=device).manual_seed(9)
+    M, hd, H = TRAIN_BATCH * TRAIN_SEQ, cfg.head_dim, cfg.n_heads
+    d, f = cfg.d_model, cfg.d_ff
+    dense = [(1, M, d, d, False), (1, M, d, f, False), (1, M, f, d, False)]
+    grouped = [(TRAIN_BATCH * H, TRAIN_SEQ, hd, TRAIN_SEQ, True),
+               (TRAIN_BATCH * H, TRAIN_SEQ, TRAIN_SEQ, hd, True)]
+    table, table32 = ops.kernel_table(BORDER, device), lut.table_tensor(BORDER, device)
+    u, v = lut.factor_tensors(BORDER, RANK, device)
+    sigma = lut.lowrank_factor(BORDER, RANK).sigma_next
+    inj = engine.get_injector(2, BORDER)
+
+    def plain_ms(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    rows = []
+    for g, m, k, n, grouped_b in dense + grouped:
+        lead = (g,) if grouped_b else ()
+        a, b = _int8((*lead, m, k), gen, device), _int8((*lead, k, n), gen, device)
+        shape = (g, m, k, n) if grouped_b else (m, k, n)
+        # the gathers
+        fn = kernel.amr_matmul_int8_lut_grouped if grouped_b else kernel.amr_matmul_int8_lut
+        got = fn(a, b, table)
+        want, p_ms = plain_ms(ref.lut_matmul_ref, a, b, table32)
+        if not torch.equal(got, want):
+            raise AssertionError(f"[train shapes] gather {shape} differs from plain")
+        nbytes = g * (m * k + k * n + 4 * m * n) + table.numel() * table.element_size()
+        b_ms, b_by = bound(nbytes, 2 * g * m * n * k, int_rate)
+        rows.append(dict(kernel="grouped" if grouped_b else "lut", shape=shape, max_abs_err=0.0,
+                         ms=time_ms(fn, [(a, b, table)], 10), plain_ms=p_ms, bound_ms=b_ms,
+                         bound_by=b_by))
+        # the replay, against its plain version and the gather kernel
+        ia, ib = a.int() + 128, b.int() + 128
+        got = rkernel.inject_replay_int32(inj, ia if grouped_b else ia[None], ib)
+        want, p_ms = plain_ms(lambda x, y: rref.replay_matmul_ref(
+            inj, x, y, max_pairs=PLAIN_REPLAY_PAIRS), ia if grouped_b else ia[None], ib)
+        lut_out = fn(a, b, table) if grouped_b else fn(a, b, table)[None]
+        if not torch.equal(got, want) or not torch.equal(got, lut_out):
+            raise AssertionError(f"[train shapes] replay {shape} differs from plain or gathers")
+        out_words = g * m * math.ceil(n / 32)
+        b_ms, b_by = bound(4 * (ia.numel() + ib.numel() + g * m * n),
+                           replay_ops(inj, out_words * k, out_words), int_rate)
+        rows.append(dict(kernel="replay", shape=shape, max_abs_err=0.0, bound_ms=b_ms,
+                         bound_by=b_by, plain_ms=p_ms,
+                         ms=time_ms(rkernel.inject_replay_int32,
+                                    [(inj, ia if grouped_b else ia[None], ib)], 5)))
+        if grouped_b:
+            continue
+        # the low-rank kernel at the dense sites
+        got = kernel.amr_matmul_int8(a, b, u, v)
+        want, p_ms = plain_ms(ref.lowrank_matmul_ref, a, b, u, v)
+        fa, fb = a.float(), b.float()
+        scale = float((fa.abs() @ fb.abs() + ref.lowrank_matmul_ref(a, b, u.abs(), v.abs())
+                       - fa @ fb).max())
+        err = float((got - want).abs().max())
+        gap = float((got.double() - ref.lut_matmul_ref(a, b, table32).double()).abs().max())
+        if not (err <= 1e-5 * scale and gap <= k * sigma + 1e-5 * scale):
+            raise AssertionError(f"[train shapes] low-rank {shape}: {err} vs 1e-5 * {scale}, "
+                                 f"gap {gap} vs K*sigma {k * sigma}")
+        b_ms, b_by = bound(m * k + k * n + 2 * u.numel() * 4 + 4 * m * n,
+                           2 * m * n * k * (1 + RANK), PEAK_FLOAT_OPS_PER_S)
+        rows.append(dict(kernel="lowrank", shape=shape, max_abs_err=err, gap_vs_exact=gap,
+                         k_sigma=k * sigma, ms=time_ms(kernel.amr_matmul_int8, [(a, b, u, v)], 10),
+                         plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by))
+    for r in rows:
+        log("[kernel] train shape " + json.dumps(r))
+    return rows
+
+
 # kernel families of the profile, by a part of their names: every template
 # instance of a hand kernel, and the memsets of all ops (a parent tree's
 # gather wrappers zero-filled their outputs with one a call)
@@ -1489,6 +1946,11 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.perf_counter()
     launches["gemma3-1b"] = phase_gemma3(device, card, gemma3_1b.CONFIG)
     log(f"[gemma3-1b] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_train_parity(device)
+    train = phase_train_full(device, card)
+    phase_train_restart(device)
+    log(f"[train] phase {time.perf_counter() - t0:.1f}s")
 
     src = "src/repro_torch/kernels/amr_matmul/csrc/"
     # the gemma-2b decode shape each AMR kernel spends most time on at border
@@ -1533,7 +1995,9 @@ def main(argv: list[str] | None = None) -> int:
                  "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                  "shape": row["shape"],
                  "launches_gemma3_1b": {label: counts[k.name]
-                                        for label, counts in launches["gemma3-1b"].items()}}
+                                        for label, counts in launches["gemma3-1b"].items()},
+                 "launches_per_train_step": {label: per_step.get(k.name, 0)
+                                             for label, per_step in train.items()}}
         if model == "attn_fused":
             entry.update(unfused_ms=row["unfused_ms"], op_ms=row["op_ms"],
                          launches_in_served_runs=served[k.name])

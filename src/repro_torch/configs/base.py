@@ -4,12 +4,13 @@ Only the fields the ported paths (the dense decoder and the Mamba2 SSM
 family) read are kept; they carry
 the JAX package's names and defaults so that a parity test can compare
 the two configs field by field.  ``numerics`` holds one ``AMRNumerics``
-design point for every matmul of the model.
+design point for every matmul of the model, or a site- and layer-resolved
+policy (``numerics/policy.py``: ``UniformPolicy``, ``PerLayerPolicy``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal
+from typing import Any, Literal
 
 from repro_torch.numerics import AMRNumerics
 
@@ -58,5 +59,7 @@ class ModelConfig:
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
-    numerics: AMRNumerics = AMRNumerics("exact")
+    numerics: Any = AMRNumerics("exact")  # AMRNumerics or a NumericsPolicy
     default_mixer: str = "full"
+    # remat policy for training: 'none' | 'block' (recompute each layer in backward)
+    remat: str = "block"

@@ -6,6 +6,7 @@ import importlib
 from .base import ModelConfig
 
 _MODULES = {
+    "amr-paper-100m": "amr_paper",
     "gemma-2b": "gemma_2b",
     "gemma3-1b": "gemma3_1b",
     "mamba2-370m": "mamba2_370m",

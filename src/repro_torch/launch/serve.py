@@ -11,7 +11,8 @@
 
 Thin CLI over ``repro_torch.serve.ServeEngine`` with random weights from
 ``--seed``.  ``--numerics`` overrides the config's matmul policy
-(``amr_inject`` replays the paper's schedule at ``--border``).  A warmup
+(``amr_inject`` replays the paper's schedule at ``--border``), and
+``--policy-file`` loads a per-layer policy file (``launch/cli.py``).  A warmup
 cycle (default on) first serves one short request so that the kernel
 build and first launches fall outside the timed window; the report then
 separates prefill and steady-state decode rates from end-to-end time.
@@ -29,8 +30,8 @@ from pathlib import Path
 import numpy as np
 
 from repro_torch.configs.registry import ARCH_NAMES, get_config, get_reduced_config
+from repro_torch.launch.cli import add_numerics_args, numerics_from_args, policy_label
 from repro_torch.models import init_params
-from repro_torch.numerics import AMRNumerics, mode_names
 from repro_torch.runtime import Heartbeat
 from repro_torch.serve import Request, ServeEngine
 
@@ -47,21 +48,16 @@ def main(argv=None) -> None:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-warmup", dest="warmup", action="store_false")
-    ap.add_argument("--numerics", default=None, choices=list(mode_names()),
-                    help="override the config's matmul numerics policy")
-    ap.add_argument("--border", type=int, default=8,
-                    help="approximate border column for the AMR modes")
-    ap.add_argument("--rank", type=int, default=8,
-                    help="low-rank error rank; 0 with amr_kernel = full-LUT kernel")
+    add_numerics_args(ap)
     ap.add_argument("--heartbeat", default=None,
                     help="path for the serve heartbeat JSON (runtime.fault)")
     args = ap.parse_args(argv)
 
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    if args.numerics is not None:
-        nm = AMRNumerics(args.numerics, border=args.border, rank=args.rank)
+    nm = numerics_from_args(args)
+    if nm is not None:
         cfg = dataclasses.replace(cfg, numerics=nm)
-    print(f"[serve] {cfg.name} on {args.device}, numerics {cfg.numerics}")
+    print(f"[serve] {cfg.name} on {args.device}, numerics {policy_label(cfg.numerics)}")
 
     rng = np.random.default_rng(args.seed)
     prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab, args.prompt_len))

@@ -23,7 +23,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.numerics import AMRNumerics, approx_matmul
+from repro_torch.numerics import AMRNumerics, approx_matmul, resolve_numerics
 
 from .layers import apply_rope, dense, rms_norm
 
@@ -33,7 +33,7 @@ _CHUNKED_THRESHOLD = 16384  # chunked attention from this prompt length (the JAX
 
 
 def _project_qkv(params, x, n_heads, n_kv, head_dim, positions, theta, qk_norm,
-                 numerics: AMRNumerics | None, eps: float):
+                 numerics, eps: float):
     B, S, _ = x.shape
     q = dense(x, params["wq"], numerics, site="attn.wq").reshape(B, S, n_heads, head_dim)
     k = dense(x, params["wk"], numerics, site="attn.wk").reshape(B, S, n_kv, head_dim)
@@ -61,8 +61,10 @@ def _seam_scores(q, k, numerics: AMRNumerics):
     return scores.reshape(B, Hq, S, T)
 
 
-def _gqa_scores(q, k, numerics: AMRNumerics | None = None):
-    """q: (B, S, Hq, D), k: (B, T, Hkv, D) -> (B, Hq, S, T)."""
+def _gqa_scores(q, k, numerics=None):
+    """q: (B, S, Hq, D), k: (B, T, Hkv, D) -> (B, Hq, S, T); a policy
+    resolves at site ``attn.qk``."""
+    numerics = resolve_numerics(numerics, "attn.qk")
     if numerics is not None and not numerics.is_exact():
         return _seam_scores(q, k, numerics)
     B, S, Hq, D = q.shape
@@ -85,8 +87,10 @@ def _seam_combine(probs, v, numerics: AMRNumerics):
     return out.reshape(B, S, Hq, D).to(probs.dtype)
 
 
-def _gqa_combine(probs, v, numerics: AMRNumerics | None = None):
-    """probs: (B, Hq, S, T), v: (B, T, Hkv, D) -> (B, S, Hq, D)."""
+def _gqa_combine(probs, v, numerics=None):
+    """probs: (B, Hq, S, T), v: (B, T, Hkv, D) -> (B, S, Hq, D); a policy
+    resolves at site ``attn.pv``."""
+    numerics = resolve_numerics(numerics, "attn.pv")
     if numerics is not None and not numerics.is_exact():
         return _seam_combine(probs, v, numerics)
     B, Hq, S, T = probs.shape
@@ -139,7 +143,7 @@ def _causal_attention(q, k, v, window: int, dtype, numerics):
 
 def attend_full(params: dict, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
                 theta: float, qk_norm: bool = False, window: int = 0,
-                numerics: AMRNumerics | None = None, eps: float = 1e-6) -> torch.Tensor:
+                numerics=None, eps: float = 1e-6) -> torch.Tensor:
     """Causal self-attention over the full sequence, within ``window``
     tokens when it is > 0."""
     B, S, _ = x.shape
@@ -175,7 +179,7 @@ class KVCache:
 
 def attend_decode(params: dict, x: torch.Tensor, cache: KVCache, *, n_heads: int, n_kv: int,
                   head_dim: int, theta: float, qk_norm: bool = False, window: int = 0,
-                  numerics: AMRNumerics | None = None,
+                  numerics=None,
                   eps: float = 1e-6) -> tuple[torch.Tensor, KVCache]:
     """One decode step, x: (B, 1, d_model): write K/V at each row's cache
     slot, attend over the valid slots.  A sliding-window layer (``window``
@@ -208,7 +212,7 @@ def attend_decode(params: dict, x: torch.Tensor, cache: KVCache, *, n_heads: int
 
 def attend_prefill(params: dict, x: torch.Tensor, capacity: int, *, n_heads: int, n_kv: int,
                    head_dim: int, theta: float, qk_norm: bool = False, window: int = 0,
-                   numerics: AMRNumerics | None = None,
+                   numerics=None,
                    eps: float = 1e-6) -> tuple[torch.Tensor, KVCache]:
     """Full-sequence attention that also builds the decode KV cache, handing
     the prompt over to decode.  A global layer needs capacity >= S and pads;

@@ -1,4 +1,5 @@
-"""Load a parameter tree exported to numpy into the port's layout.
+"""Load a parameter tree, or a training state, exported to numpy into the
+port's layout.
 
 The JAX package's ``init_params`` tree, exported with
 ``jax.tree.map(np.asarray, params)``, has the same nesting, shapes and
@@ -7,8 +8,12 @@ on the same weights; the float32 leaves (norm scales, the SSM's ``a_log``,
 ``dt_bias``, ``d_skip``) stay float32.  bfloat16 arrays arrive as ``ml_dtypes.bfloat16``
 numpy arrays, which torch cannot read directly; they are reinterpreted
 through their 16-bit pattern.  This module never imports JAX.
+``train_state_from_numpy`` does the same for a JAX ``TrainState``
+(params, AdamW ``mu``/``nu``/``master``/``count``, ``step``).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -52,3 +57,33 @@ def params_from_numpy(tree, cfg: ModelConfig, device: str | torch.device = "cuda
         return t.to(dev)
 
     return convert(tree, param_specs(cfg), "")
+
+
+def train_state_from_numpy(state, cfg: ModelConfig, device: str | torch.device = "cuda"):
+    """A training state exported to numpy -> the port's ``TrainState`` on
+    ``device``.  ``state`` has ``params``, ``opt`` (``mu``, ``nu``,
+    ``master``, ``count``) and ``step`` as attributes (the JAX dataclasses
+    after ``jax.tree.map(np.asarray, ...)``) or as dict keys.  The moments
+    and the master copy are float32 in every leaf; ``count`` and ``step``
+    int32 scalars."""
+    from repro_torch.optim import AdamWState  # lazy: the optimizer imports the models
+    from repro_torch.train.steps import TrainState
+
+    def get(node, key):
+        return node[key] if isinstance(node, dict) else getattr(node, key)
+
+    dev = resolve_device(device)
+    opt = get(state, "opt")
+    f32 = dataclasses.replace(cfg, dtype="float32")
+
+    def scalar(x) -> torch.Tensor:
+        arr = np.asarray(x)
+        if arr.shape != () or arr.dtype != np.int32:
+            raise ValueError(f"expected an int32 scalar, got {arr.shape} {arr.dtype}")
+        return torch.from_numpy(np.array(arr)).to(dev)
+
+    return TrainState(
+        params_from_numpy(get(state, "params"), cfg, dev),
+        AdamWState(*(params_from_numpy(get(opt, k), f32, dev) for k in ("mu", "nu", "master")),
+                   scalar(get(opt, "count"))),
+        scalar(get(state, "step")))

@@ -9,21 +9,22 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.numerics import AMRNumerics, approx_matmul
+from repro_torch.numerics import approx_matmul, resolve_numerics
 from repro_torch.numerics.approx_matmul import matmul_exact
 
 
-def dense(x: torch.Tensor, w: torch.Tensor, numerics: AMRNumerics | None = None,
-          site: str | None = None) -> torch.Tensor:
+def dense(x: torch.Tensor, w: torch.Tensor, numerics=None, site: str | None = None) -> torch.Tensor:
     """x: (..., K) @ w: (K, N) under the numerics policy, in x's dtype.
 
-    ``site`` labels the call site (e.g. ``"mlp.w_gate"``).
+    ``site`` labels the call site (e.g. ``"mlp.w_gate"``); a site-resolved
+    policy resolves here against it and the ambient layer.  x keeps its
+    leading (request) dims, so the float products that run one request a
+    call (``approx_matmul._per_request``) see them.
     """
+    numerics = resolve_numerics(numerics, site)
     if numerics is None or numerics.is_exact():
         return matmul_exact(x, w)
-    shape = x.shape
-    out = approx_matmul(x.reshape(-1, shape[-1]), w, numerics, site=site)
-    return out.reshape(*shape[:-1], w.shape[-1]).to(x.dtype)
+    return approx_matmul(x, w, numerics, site=site).to(x.dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -59,8 +60,7 @@ _ACTS = {
 }
 
 
-def mlp(params: dict, x: torch.Tensor, act: str,
-        numerics: AMRNumerics | None) -> torch.Tensor:
+def mlp(params: dict, x: torch.Tensor, act: str, numerics) -> torch.Tensor:
     if act not in _ACTS:
         raise ValueError(f"unknown mlp activation {act!r}; known: {tuple(_ACTS)}")
     g = dense(x, params["w_gate"], numerics, site="mlp.w_gate")

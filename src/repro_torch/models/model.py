@@ -18,15 +18,29 @@ grouping: one ``KVCache`` (attention) or ``SSMState`` (conv rings and
 state, no position) per kind, leaves stacked over ``n_repeat``.  A Mamba2
 block has no MLP: its ``ln2`` is kept, unused, as in the JAX package.
 
-Every matmul of every layer runs under ``cfg.numerics``; the LM head stays
-exact.
+Every matmul of every layer runs under ``cfg.numerics``, an
+``AMRNumerics`` or a site- and layer-resolved policy; the LM head stays
+exact.  Each layer runs inside ``numerics_scope(layer=, static_layer=)``
+with its flat index (group g, kind i: g * len(kinds) + i), the coordinate a
+per-layer policy resolves against.
+
+``forward`` is also the training forward: it runs under autograd (no
+in-place write to a tensor autograd saved), and with ``cfg.remat ==
+"block"`` and grad enabled each layer runs under
+``torch.utils.checkpoint`` (non-reentrant), as the JAX package wraps each
+layer in ``jax.checkpoint``: the backward recomputes the layer's forward,
+its kernel launches included.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.numerics import current_scope, numerics_scope
 
 from . import attention as attn
 from . import ssm as ssm_lib
@@ -155,27 +169,42 @@ def _head(cfg: ModelConfig, params: dict) -> torch.Tensor:
     return params["embed"] if cfg.tie_embeddings else params["lm_head"]
 
 
+def _layer_full(cfg: ModelConfig, kind: str, flat: int, step, lp: dict,
+                x: torch.Tensor) -> torch.Tensor:
+    """One layer of the full-sequence forward, in its numerics scope (entered
+    here, so that a checkpointed layer's recompute runs in it too)."""
+    with numerics_scope(step=step, layer=flat, static_layer=flat):
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if kind == "ssm":
+            return x + ssm_lib.ssm_forward(lp["ssm"], h, cfg.d_model, cfg.ssm, cfg.numerics,
+                                           cfg.norm_eps)
+        x = x + attn.attend_full(lp["attn"], h, **_attn_kwargs(cfg, kind))
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        return x + mlp(lp["mlp"], h, cfg.mlp_act, cfg.numerics)
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            last_only: bool = False) -> torch.Tensor:
-    """Full-sequence forward: tokens (B, S) -> logits (B, S, V) (or (B, 1, V)
-    with ``last_only``, sliced before the LM head)."""
+            last_only: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward: tokens (B, S) -> (logits (B, S, V) (or (B, 1,
+    V) with ``last_only``, sliced before the LM head), aux loss), as the JAX
+    package's; aux is a float32 0 for the dense and SSM families."""
     kinds, n_repeat = group_structure(cfg)
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    step = current_scope().step
     x = embed(params["embed"], tokens)
     for g in range(n_repeat):
         for i, kind in enumerate(kinds):
+            body = partial(_layer_full, cfg, kind, g * len(kinds) + i, step)
             lp = _layer(params["layers"][i], g)
-            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            if kind == "ssm":
-                x = x + ssm_lib.ssm_forward(lp["ssm"], h, cfg.d_model, cfg.ssm, cfg.numerics,
-                                            cfg.norm_eps)
-                continue
-            x = x + attn.attend_full(lp["attn"], h, **_attn_kwargs(cfg, kind))
-            h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + mlp(lp["mlp"], h, cfg.mlp_act, cfg.numerics)
+            if remat:
+                x = checkpoint(body, lp, x, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = body(lp, x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if last_only:
         x = x[:, -1:, :]
-    return unembed(x, _head(cfg, params))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return unembed(x, _head(cfg, params)), aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device: torch.device,
@@ -218,6 +247,15 @@ def _merge_active(old: tuple, new: tuple, active: torch.Tensor) -> tuple:
     return tree_map(merge, old, new)
 
 
+def _cache_position(cache: tuple):
+    """The decode position: the first KV cache's length (a scalar, or (B,)
+    per slot); None for a cache of SSM states only, which hold no position."""
+    for c in cache:
+        if isinstance(c, attn.KVCache):
+            return c.length[0]
+    return None
+
+
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor, cache: tuple,
                 active: torch.Tensor | None = None) -> tuple[torch.Tensor, tuple]:
     """One serving step: token (B, 1) -> (logits (B, 1, V), new cache).
@@ -227,24 +265,27 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor, cache: tupl
     rolled back; their logits are garbage the caller ignores.
     """
     kinds, n_repeat = group_structure(cfg)
+    pos = _cache_position(cache)
     x = embed(params["embed"], token)
     per_group = []
     for g in range(n_repeat):
         new = []
         for i, kind in enumerate(kinds):
             lp = _layer(params["layers"][i], g)
-            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            if kind == "ssm":
-                y, c = ssm_lib.ssm_decode(lp["ssm"], h, _layer(cache[i], g), cfg.d_model,
-                                          cfg.ssm, cfg.numerics, cfg.norm_eps)
+            flat = g * len(kinds) + i
+            with numerics_scope(step=pos, layer=flat, static_layer=flat):
+                h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+                if kind == "ssm":
+                    y, c = ssm_lib.ssm_decode(lp["ssm"], h, _layer(cache[i], g), cfg.d_model,
+                                              cfg.ssm, cfg.numerics, cfg.norm_eps)
+                    x = x + y
+                    new.append(c)
+                    continue
+                y, c = attn.attend_decode(lp["attn"], h, _layer(cache[i], g),
+                                          **_attn_kwargs(cfg, kind))
                 x = x + y
-                new.append(c)
-                continue
-            y, c = attn.attend_decode(lp["attn"], h, _layer(cache[i], g),
-                                      **_attn_kwargs(cfg, kind))
-            x = x + y
-            h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + mlp(lp["mlp"], h, cfg.mlp_act, cfg.numerics)
+                h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+                x = x + mlp(lp["mlp"], h, cfg.mlp_act, cfg.numerics)
             new.append(c)
         per_group.append(tuple(new))
     new_cache = tree_map(lambda *ls: torch.stack(ls), *per_group)
@@ -264,18 +305,20 @@ def prefill_with_cache(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         caches = []
         for i, kind in enumerate(kinds):
             lp = _layer(params["layers"][i], g)
-            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            if kind == "ssm":
-                y, c = ssm_lib.ssm_prefill(lp["ssm"], h, cfg.d_model, cfg.ssm, cfg.numerics,
-                                           cfg.norm_eps)
+            flat = g * len(kinds) + i
+            with numerics_scope(layer=flat, static_layer=flat):
+                h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+                if kind == "ssm":
+                    y, c = ssm_lib.ssm_prefill(lp["ssm"], h, cfg.d_model, cfg.ssm,
+                                               cfg.numerics, cfg.norm_eps)
+                    x = x + y
+                    caches.append(c)
+                    continue
+                y, c = attn.attend_prefill(lp["attn"], h, _kv_capacity(cfg, kind, capacity),
+                                           **_attn_kwargs(cfg, kind))
                 x = x + y
-                caches.append(c)
-                continue
-            y, c = attn.attend_prefill(lp["attn"], h, _kv_capacity(cfg, kind, capacity),
-                                       **_attn_kwargs(cfg, kind))
-            x = x + y
-            h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + mlp(lp["mlp"], h, cfg.mlp_act, cfg.numerics)
+                h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+                x = x + mlp(lp["mlp"], h, cfg.mlp_act, cfg.numerics)
             caches.append(c)
         per_group.append(tuple(caches))
     cache = tree_map(lambda *ls: torch.stack(ls), *per_group)

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan
 from repro_torch.kernels.ssd_scan.ops import decay_weighted_c
-from repro_torch.numerics import AMRNumerics, approx_matmul
+from repro_torch.numerics import approx_matmul, resolve_numerics
 
 from .layers import dense, rms_norm
 
@@ -110,15 +110,17 @@ def _causal_conv(xs: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
 
 
 def ssd_chunked(x, dt, a_log, b, c, chunk: int, return_state: bool = False,
-                numerics: AMRNumerics | None = None):
+                numerics=None):
     """SSD scan. x (B, S, H, P), dt (B, S, H), b/c (B, S, G, N) -> y (B, S, H, P)
     float32 (and the final (B, H, N, P) state with ``return_state``).
 
     Exact numerics: the kernel gives the whole y.  Otherwise the kernel
     gives the intra-chunk y and the state before each chunk, and the
     readout ``(C exp(cum)) @ h_prev`` runs through the seam at ``ssm.scan``
-    as one (B, nc, H, Q, N) @ (B, nc, H, N, P) grouped product.
+    as one (B, nc, H, Q, N) @ (B, nc, H, N, P) grouped product.  A policy
+    resolves at site ``ssm.scan``.
     """
+    numerics = resolve_numerics(numerics, "ssm.scan")
     if numerics is None or numerics.is_exact():
         y, h_final = ssd_scan(x, dt, a_log, b, c, chunk)
     else:
@@ -168,13 +170,13 @@ def _mix(params: dict, xin, d_model: int, cfg: SSMConfig, numerics, eps: float,
 
 
 def ssm_forward(params: dict, xin: torch.Tensor, d_model: int, cfg: SSMConfig,
-                numerics: AMRNumerics | None = None, eps: float = 1e-6) -> torch.Tensor:
+                numerics=None, eps: float = 1e-6) -> torch.Tensor:
     """Full-sequence Mamba2 mixer (train / prefill)."""
     return _mix(params, xin, d_model, cfg, numerics, eps, return_state=False)
 
 
 def ssm_prefill(params: dict, xin: torch.Tensor, d_model: int, cfg: SSMConfig,
-                numerics: AMRNumerics | None = None, eps: float = 1e-6):
+                numerics=None, eps: float = 1e-6):
     """Full-sequence forward that also returns the decode state (prefill ->
     decode handoff): the final SSM state and the conv rings' raw tails."""
     return _mix(params, xin, d_model, cfg, numerics, eps, return_state=True)
@@ -230,7 +232,7 @@ def _readout_exact(ch: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 
 
 def ssm_decode(params: dict, xin: torch.Tensor, state: SSMState, d_model: int,
-               cfg: SSMConfig, numerics: AMRNumerics | None = None,
+               cfg: SSMConfig, numerics=None,
                eps: float = 1e-6) -> tuple[torch.Tensor, SSMState]:
     """One-token step. xin: (B, 1, d_model).  The projections take the
     (B, 1, d) rows, so an exact product runs one request per call."""
@@ -261,9 +263,10 @@ def ssm_decode(params: dict, xin: torch.Tensor, state: SSMState, d_model: int,
 
     x, ch, h_new, ring_x, ring_b, ring_c = _per_row_on_cpu(
         advance, x, b, c, dt, state.conv_x, state.conv_b, state.conv_c, state.h)
-    if numerics is not None and not numerics.is_exact():
+    nm = resolve_numerics(numerics, "ssm.scan")
+    if nm is not None and not nm.is_exact():
         # one-row state readout through the seam: (B, H, 1, N) @ (B, H, N, P)
-        yss = approx_matmul(ch[:, :, None, :], h_new, numerics, site="ssm.scan")[:, :, 0, :]
+        yss = approx_matmul(ch[:, :, None, :], h_new, nm, site="ssm.scan")[:, :, 0, :]
     else:
         yss = _readout_exact(ch, h_new)
 

@@ -1,61 +1,64 @@
 """Approximate matmul modes: the AMR-MUL as a numerics policy.
 
-The port of the JAX package's ``numerics/approx_matmul.py`` for the modes
-this port serves:
+The port of the JAX package's ``numerics/approx_matmul.py``:
 
   exact       — ``torch.matmul`` in the requested dtype (baseline).
   amr_lut     — bit-exact AMR-MUL semantics per scalar product: int8
                 quantize, per-element gather from the 256x256 table,
                 integer accumulation.  The plain oracle (small shapes).
-  amr_kernel  — the hand-written CUDA kernels (kernels/amr_matmul): the
-                low-rank kernel at ``rank``, or the bit-exact full-table
-                gather kernel when ``rank == 0``.
   amr_inject  — exact AMR products of any schedule, DSE candidates
                 included (``schedule_ref``), by replaying the reduction
                 circuit: the hand-written kernel of kernels/inject_replay.
+  amr_lowrank — C = (A@B + U(A)@V(B)) * scales with rank-r SVD factors of
+                the table's error, one float32 product over an augmented K.
+  amr_kernel  — the hand-written CUDA kernels (kernels/amr_matmul): the
+                low-rank kernel at ``rank``, or the bit-exact full-table
+                gather kernel when ``rank == 0``.
 
 All functions take A: (..., M, K) and B: (K, N) or a batched B: (..., K, N)
 whose leading dims broadcast against A's.  Quantization is per row of A
 and per column of B, so a batched call equals stacking the per-group calls.
 
-Dispatch goes through the mode table ``_MODES``; callers never compare mode
-names.  The other modes of the JAX package (``amr_lowrank``,
-``amr_noise``) are not ported yet and are refused when a policy names them.
+Dispatch goes through the mode registry (``numerics/registry.py``): each
+mode registers at the bottom of this module, in the JAX package's order,
+and ``AMRNumerics`` validates against the registry at construction;
+callers never compare mode names.  ``amr_noise`` is refused by name.
+
+Training: ``amr_inject``, ``amr_lowrank`` and ``amr_kernel`` are
+``torch.autograd.Function``s whose forward runs the mode on detached
+operands (the kernels on the card) and whose backward is the JAX
+package's straight-through surrogate, the full-precision matmul's
+gradient (``_lowrank_bwd``).  ``amr_lut`` differentiates through its
+scales alone, as the JAX package's hard quantizer does.  Without grad
+(serving) the forward runs as it is, with no autograd node.
 
 Float products whose rows belong to different requests (the exact matmul
-on a 2-D weight, split along A's leading request dim, and the float32
-low-rank product of the grouped attention sites, split by group) run one
-request or one group per ``torch.matmul``, so a request's result does not
-depend on how many requests share the step: batched and solo decode give
-the same bits.
+on a 2-D weight and ``amr_lowrank``'s flat form, split along A's leading
+request dim, and the float32 low-rank product of the grouped attention
+sites, split by group) run one request or one group per
+``torch.matmul``, so a request's result does not depend on how many
+requests share the step: batched and solo decode give the same bits.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from functools import partial
 
 import torch
 
 from repro_torch.core import lut as lut_lib
 from repro_torch.kernels.amr_matmul.ref import lut_matmul_ref
 
+from . import registry
+from .context import current_scope
 from .quant import quantize_int8, quantize_int8_ste
 
 
 @dataclasses.dataclass(frozen=True)
-class _Mode:
-    impl: Callable[..., torch.Tensor]
-    exact: bool = False
-    needs_rank: bool = False
-
-
-_NOT_YET_PORTED = ("amr_lowrank", "amr_noise")
-
-
-@dataclasses.dataclass(frozen=True)
 class AMRNumerics:
-    """Numerics policy threaded through the model; validated at construction."""
+    """Numerics policy threaded through the model; validated against the
+    mode registry at construction."""
 
     mode: str = "exact"
     border: int = 8  # approximate border column (paper Table I/II)
@@ -66,27 +69,10 @@ class AMRNumerics:
     schedule_ref: str | None = None
 
     def __post_init__(self):
-        if self.mode in _NOT_YET_PORTED:
-            raise NotImplementedError(
-                f"numerics mode {self.mode!r} is not yet ported to repro_torch; "
-                f"ported modes: {tuple(_MODES)}")
-        spec = _MODES.get(self.mode)
-        if spec is None:
-            raise ValueError(f"unknown numerics mode {self.mode!r}; valid modes: {tuple(_MODES)}")
-        if spec.exact:
-            return
-        if not isinstance(self.border, int) or self.border < 0:
-            raise ValueError(f"numerics mode {self.mode!r} needs a non-negative integer "
-                             f"border, got {self.border!r}")
-        if spec.needs_rank and (not isinstance(self.rank, int) or self.rank < 0):
-            raise ValueError(f"numerics mode {self.mode!r} needs an integer rank >= 0, "
-                             f"got {self.rank!r}")
-        if self.schedule_ref is not None and not isinstance(self.schedule_ref, str):
-            raise ValueError(f"schedule_ref must be a registered-schedule handle (str) or "
-                             f"None, got {self.schedule_ref!r}")
+        registry.validate_policy(self)
 
     def is_exact(self) -> bool:
-        return _MODES[self.mode].exact
+        return registry.get_mode(self.mode).exact
 
 
 def _per_request(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -127,8 +113,9 @@ def matmul_amr_lut(a: torch.Tensor, b: torch.Tensor, border: int) -> torch.Tenso
 
 
 def _lowrank_fwd(a: torch.Tensor, b: torch.Tensor, border: int, rank: int) -> torch.Tensor:
-    """Grouped (G, M, K) @ (G, K, N) augmented-K product with bf16 error
-    lanes and float32 accumulation.
+    """Augmented-K product with bf16 error lanes and float32 accumulation:
+    (..., M, K) @ (K, N) one ``torch.matmul`` per request (slice of A's
+    leading dims), grouped (G, M, K) @ (G, K, N) one per group.
 
     Per k the contraction lanes are [exact, err_1..err_r] on both sides; the
     bf16 lane values are exact in float32, so the float32 matmul accumulates
@@ -144,12 +131,13 @@ def _lowrank_fwd(a: torch.Tensor, b: torch.Tensor, border: int, rank: int) -> to
     ua = u[ia].to(torch.bfloat16)                        # (..., M, K, r)
     vb = v[ib].to(torch.bfloat16)                        # (..., K, N, r)
     a_aug = torch.cat([qa[..., None].to(torch.bfloat16), ua], dim=-1)
-    a_aug = a_aug.reshape(*a.shape[:-1], K * (1 + rank))
+    a_aug = a_aug.reshape(*a.shape[:-1], K * (1 + rank)).float()
     b_aug = torch.cat([qb[..., :, None, :].to(torch.bfloat16), vb.movedim(-1, -2)], dim=-2)
-    b_aug = b_aug.reshape(*b.shape[:-2], K * (1 + rank), b.shape[-1])
-    # one product per group: a group is one request's (kv head's) rows
-    out = torch.stack([torch.matmul(a_aug[g].float(), b_aug[g].float())
-                       for g in range(a.shape[0])])
+    b_aug = b_aug.reshape(*b.shape[:-2], K * (1 + rank), b.shape[-1]).float()
+    if b.dim() == 2:
+        out = matmul_exact(a_aug, b_aug)
+    else:  # one product per group: a group is one request's (kv head's) rows
+        out = torch.stack([torch.matmul(a_aug[g], b_aug[g]) for g in range(a.shape[0])])
     return out * sa * sb
 
 
@@ -163,14 +151,68 @@ def _broadcast_groups(a: torch.Tensor, b: torch.Tensor):
     return a3.reshape(g, *a.shape[-2:]), b3.reshape(g, *b.shape[-2:]), lead
 
 
-def matmul_amr_kernel(a: torch.Tensor, b: torch.Tensor, border: int, rank: int) -> torch.Tensor:
-    """Kernel-backed AMR matmul (the serving hot path), forward only.
+def _reduce_to_shape(g: torch.Tensor, shape: torch.Size) -> torch.Tensor:
+    """Sum a gradient down to ``shape`` (undo the matmul's broadcast)."""
+    if g.shape == shape:
+        return g
+    extra = g.dim() - len(shape)
+    if extra:
+        g = g.sum(dim=tuple(range(extra)))
+    keep = tuple(i for i, (gd, sd) in enumerate(zip(g.shape, shape)) if gd != sd)
+    return g.sum(dim=keep, keepdim=True) if keep else g
 
-    A 2-D weight takes ``amr_matmul``: the full-LUT kernel at rank 0, the
-    low-rank kernel otherwise.  A batched B (activation x activation) takes
-    the grouped full-LUT kernel at rank 0 and the augmented-K matmul of
-    ``_lowrank_fwd`` at rank > 0, the split the JAX package makes.
-    """
+
+def _lowrank_bwd(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor):
+    """The straight-through surrogate: the full-precision matmul's
+    gradients, in g's dtype, summed back to each operand's shape and cast
+    to its dtype (JAX ``_lowrank_bwd``)."""
+    ga = torch.matmul(g, b.transpose(-1, -2).to(g.dtype))
+    if b.dim() > 2:
+        gb = torch.matmul(a.transpose(-1, -2).to(g.dtype), g)
+    else:
+        gb = torch.matmul(a.reshape(-1, a.shape[-1]).T.to(g.dtype), g.reshape(-1, g.shape[-1]))
+    return (_reduce_to_shape(ga, a.shape).to(a.dtype),
+            _reduce_to_shape(gb, b.shape).to(b.dtype))
+
+
+class _StraightThrough(torch.autograd.Function):
+    """``fwd(a, b)`` forward on the detached operands, ``_lowrank_bwd`` backward."""
+
+    @staticmethod
+    def forward(ctx, a, b, fwd):
+        ctx.save_for_backward(a, b)
+        return fwd(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga, gb = _lowrank_bwd(a, b, g)
+        return ga, gb, None
+
+
+def _straight_through(fwd, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``fwd(a, b)``, with the straight-through backward where grad is wanted."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _StraightThrough.apply(a, b, fwd)
+    return fwd(a, b)
+
+
+def _lowrank_any(a: torch.Tensor, b: torch.Tensor, border: int, rank: int) -> torch.Tensor:
+    if b.dim() == 2:
+        return _lowrank_fwd(a, b, border, rank)
+    a3, b3, lead = _broadcast_groups(a, b)
+    return _lowrank_fwd(a3, b3, border, rank).reshape(*lead, a.shape[-2], b.shape[-1])
+
+
+def matmul_amr_lowrank(a: torch.Tensor, b: torch.Tensor, border: int, rank: int) -> torch.Tensor:
+    """The low-rank form on plain PyTorch ops (JAX ``matmul_amr_lowrank``):
+    A @ B + U[A] . V[B] as one float32 product over an augmented K; a 2-D B
+    one product per request, a batched B one per group.  Backward: the
+    straight-through surrogate."""
+    return _straight_through(partial(_lowrank_any, border=border, rank=rank), a, b)
+
+
+def _kernel_fwd(a: torch.Tensor, b: torch.Tensor, border: int, rank: int) -> torch.Tensor:
     from repro_torch.kernels.amr_matmul.ops import (amr_matmul,  # lazy: import cycle
                                                     amr_matmul_grouped)
 
@@ -187,17 +229,19 @@ def matmul_amr_kernel(a: torch.Tensor, b: torch.Tensor, border: int, rank: int) 
     return out.reshape(*lead, a.shape[-2], b.shape[-1])
 
 
-def matmul_amr_inject(a: torch.Tensor, b: torch.Tensor, numerics: AMRNumerics) -> torch.Tensor:
-    """Exact per-product AMR error for any schedule, forward only.
+def matmul_amr_kernel(a: torch.Tensor, b: torch.Tensor, border: int, rank: int) -> torch.Tensor:
+    """Kernel-backed AMR matmul (the serving and training hot path).
 
-    Quantizes both operands as the straight-through form does, replays the
-    schedule's reduction circuit for every operand pair (the
-    ``inject_replay`` kernel for CUDA tensors, its plain version for CPU
-    tensors) and rescales, ``acc.float() * sa * sb``.  A 2-D B takes the
-    replay matmul, a batched B (activation x activation) its grouped form.
-    Bit-identical to ``matmul_amr_lut`` on the same schedule's table for
-    inputs whose two quantizers agree (float32).
+    A 2-D weight takes ``amr_matmul``: the full-LUT kernel at rank 0, the
+    low-rank kernel otherwise.  A batched B (activation x activation) takes
+    the grouped full-LUT kernel at rank 0 and the augmented-K matmul of
+    ``_lowrank_fwd`` at rank > 0, the split the JAX package makes.
+    Backward: the straight-through surrogate.
     """
+    return _straight_through(partial(_kernel_fwd, border=border, rank=rank), a, b)
+
+
+def _inject_fwd(a: torch.Tensor, b: torch.Tensor, numerics: AMRNumerics) -> torch.Tensor:
     from repro_torch.kernels.inject_replay.ops import (  # lazy: import cycle
         inject_replay_matmul, inject_replay_matmul_grouped)
 
@@ -218,28 +262,89 @@ def matmul_amr_inject(a: torch.Tensor, b: torch.Tensor, numerics: AMRNumerics) -
     return acc.float() * sa * sb
 
 
-_MODES: dict[str, _Mode] = {
-    "exact": _Mode(lambda a, b, nm: matmul_exact(a, b), exact=True),
-    "amr_lut": _Mode(lambda a, b, nm: matmul_amr_lut(a, b, nm.border)),
-    "amr_kernel": _Mode(lambda a, b, nm: matmul_amr_kernel(a, b, nm.border, nm.rank),
-                        needs_rank=True),
-    "amr_inject": _Mode(matmul_amr_inject),
-}
+def matmul_amr_inject(a: torch.Tensor, b: torch.Tensor, numerics: AMRNumerics) -> torch.Tensor:
+    """Exact per-product AMR error for any schedule.
+
+    Quantizes both operands as the straight-through form does, replays the
+    schedule's reduction circuit for every operand pair (the
+    ``inject_replay`` kernel for CUDA tensors, its plain version for CPU
+    tensors) and rescales, ``acc.float() * sa * sb``.  A 2-D B takes the
+    replay matmul, a batched B (activation x activation) its grouped form.
+    Bit-identical to ``matmul_amr_lut`` on the same schedule's table for
+    inputs whose two quantizers agree (float32).  Backward: the
+    straight-through surrogate.
+    """
+    return _straight_through(partial(_inject_fwd, numerics=numerics), a, b)
 
 
-def mode_names() -> tuple[str, ...]:
-    """The modes this port serves, in canonical order."""
-    return tuple(_MODES)
+def resolve_numerics(numerics, site: str | None = None):
+    """Resolve a policy (``numerics/policy.py``) at the ambient static
+    layer; a bare ``AMRNumerics`` or None passes through.  The one
+    resolution point of the model's sites and of ``approx_matmul``."""
+    if numerics is None or isinstance(numerics, AMRNumerics):
+        return numerics
+    return numerics.resolve(site, current_scope().static_layer)
 
 
-def approx_matmul(a: torch.Tensor, b: torch.Tensor, numerics: AMRNumerics | None = None,
-                  *, site: str | None = None) -> torch.Tensor:
+def approx_matmul(a: torch.Tensor, b: torch.Tensor, numerics=None, *,
+                  site: str | None = None) -> torch.Tensor:
     """Dispatch a matmul under the given numerics policy (None = exact).
 
-    ``site`` is the call-site label (e.g. ``"attn.qk"``), kept on every call
-    so that per-site policies and audits can address the sites when they are
-    ported; no mode of this port reads it yet.
+    ``numerics`` is one ``AMRNumerics`` or a site-resolved policy
+    (``numerics/policy.py``), which resolves here against the call-site
+    label ``site`` (e.g. ``"attn.qk"``) and the ambient scope's static
+    layer.
     """
+    numerics = resolve_numerics(numerics, site)
     if numerics is None or numerics.is_exact():
         return matmul_exact(a, b)
-    return _MODES[numerics.mode].impl(a, b, numerics)
+    return registry.get_mode(numerics.mode).impl(a, b, numerics, site=site)
+
+
+# --------------------------------------------------------------------------
+# mode registration, in the JAX package's canonical order
+# --------------------------------------------------------------------------
+
+def _require_border(nm) -> None:
+    if not isinstance(nm.border, int) or nm.border < 0:
+        raise ValueError(f"numerics mode {nm.mode!r} needs a non-negative integer "
+                         f"border, got {nm.border!r}")
+
+
+def _validate_rank(nm, *, minimum: int) -> None:
+    _require_border(nm)
+    if not isinstance(nm.rank, int) or nm.rank < minimum:
+        raise ValueError(f"numerics mode {nm.mode!r} needs an integer rank >= {minimum}, "
+                         f"got {nm.rank!r}")
+
+
+def _validate_inject(nm) -> None:
+    _require_border(nm)
+    if nm.schedule_ref is not None and not isinstance(nm.schedule_ref, str):
+        raise ValueError(f"schedule_ref must be a registered-schedule handle (str) or "
+                         f"None, got {nm.schedule_ref!r}")
+
+
+registry.register_mode(
+    "exact", lambda a, b, nm, *, site=None: matmul_exact(a, b),
+    description="torch.matmul in the requested dtype (baseline)", exact=True)
+
+registry.register_mode(
+    "amr_lut", lambda a, b, nm, *, site=None: matmul_amr_lut(a, b, nm.border),
+    required_params=("border",), validate=_require_border,
+    description="bit-exact LUT-gather oracle (small shapes)")
+
+registry.register_mode(
+    "amr_inject", lambda a, b, nm, *, site=None: matmul_amr_inject(a, b, nm),
+    required_params=("border",), validate=_validate_inject, accepts_params=("schedule_ref",),
+    description="exact error injection by circuit replay (any schedule)")
+
+registry.register_mode(
+    "amr_lowrank", lambda a, b, nm, *, site=None: matmul_amr_lowrank(a, b, nm.border, nm.rank),
+    required_params=("border", "rank"), validate=partial(_validate_rank, minimum=1),
+    defaults={"rank": 4}, description="low-rank error factorization, one float32 product")
+
+registry.register_mode(
+    "amr_kernel", lambda a, b, nm, *, site=None: matmul_amr_kernel(a, b, nm.border, nm.rank),
+    required_params=("border", "rank"), validate=partial(_validate_rank, minimum=0),
+    defaults={"rank": 0}, description="hand-written CUDA kernels (rank 0 = full-LUT gather)")

@@ -1,4 +1,5 @@
-"""Runtime: the serving half of fault tolerance (heartbeat, straggler flags)."""
-from .fault import Heartbeat, StragglerMonitor
+"""Runtime: fault tolerance (heartbeat, straggler flags, the
+checkpoint/restart training loop)."""
+from .fault import FaultTolerantLoop, Heartbeat, LoopResult, StragglerMonitor
 
-__all__ = ["Heartbeat", "StragglerMonitor"]
+__all__ = ["Heartbeat", "StragglerMonitor", "FaultTolerantLoop", "LoopResult"]

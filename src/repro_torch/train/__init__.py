@@ -1,1 +1,1 @@
-"""Step functions of the port (serving steps so far)."""
+"""Step functions of the port: training (loss, gradients, AdamW) and serving."""

@@ -1,11 +1,135 @@
-"""prefill_step / serve_step — the serving steps of the JAX package's
-``train/steps.py``, run eagerly under ``torch.inference_mode``."""
+"""train_step / prefill_step / serve_step: the port of the JAX package's
+``train/steps.py``, run eagerly.
+
+  * train_*   — loss, gradient and AdamW update (optionally with microbatch
+                gradient accumulation);
+  * prefill_* — full-sequence forward returning the last logits;
+  * serve_*   — one decode step against a KV or SSM cache.
+
+Under the AMR modes a training step's forward runs the hand kernels and
+its backward the straight-through surrogate (``numerics/approx_matmul.py``).
+A family whose forward has no backward in the port (a layer of kind
+"ssm": the SSD kernel has none) is refused, so that nothing trains with
+missing gradients; every parameter must receive a gradient.
+"""
 from __future__ import annotations
+
+import dataclasses
+from typing import Any
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import decode_step, forward
+from repro_torch.models import decode_step, forward, group_structure, init_params
+from repro_torch.models.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.numerics import numerics_scope
+from repro_torch.optim import AdamWState, adamw_init, adamw_update, cosine_warmup, global_norm
+
+# layer kinds whose forward the port cannot differentiate yet (ROADMAP queue 1)
+_NO_BACKWARD = {"ssm": "the SSD scan kernel has no backward (ROADMAP queue 1, SSM training)"}
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Any
+    opt: AdamWState
+    step: torch.Tensor  # int32 scalar
+
+
+def make_train_state(cfg: ModelConfig, seed: int = 0, *,
+                     device: str | torch.device = "cuda") -> TrainState:
+    """Random weights from ``seed`` on ``device``, fresh AdamW state, step 0."""
+    params = init_params(cfg, seed, device=device)
+    return TrainState(params, adamw_init(params),
+                      torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device))
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config with a layer kind the port
+    cannot train yet."""
+    for kind in group_structure(cfg)[0]:
+        if kind in _NO_BACKWARD:
+            raise NotImplementedError(f"{cfg.name} cannot train in repro_torch: {kind!r} "
+                                      f"layers: {_NO_BACKWARD[kind]}")
+
+
+def loss_fn(cfg: ModelConfig, params, tokens: torch.Tensor, targets: torch.Tensor,
+            aux_weight: float = 0.01, step=None, *, with_logits: bool = False):
+    """Mean float32 next-token NLL plus ``aux_weight * aux`` -> (loss, aux),
+    or (loss, (aux, logits)) with ``with_logits``.  ``step`` enters the
+    numerics scope.  Raises for a family the port cannot differentiate
+    when grad is enabled."""
+    if torch.is_grad_enabled():
+        check_trainable(cfg)
+    with numerics_scope(step=step):
+        logits, aux = forward(cfg, params, tokens)
+    ll = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(ll, -1, targets.long()[..., None])[..., 0]
+    loss = nll.mean() + aux_weight * aux
+    return (loss, (aux, logits)) if with_logits else (loss, aux)
+
+
+def _grads_of(cfg: ModelConfig, params, tokens, targets, step):
+    """(loss, aux, grads): every parameter must get a gradient."""
+    with torch.enable_grad():
+        ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, aux = loss_fn(cfg, ps, tokens, targets, step=step)
+        grads = torch.autograd.grad(loss, tree_leaves(ps))
+    return loss.detach(), aux.detach(), tree_unflatten(params, list(grads))
+
+
+def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4, warmup: int = 100,
+                    total_steps: int = 10_000, microbatch: int | None = None):
+    """Returns train_step(state, batch) -> (state, metrics); ``batch`` holds
+    ``tokens`` and ``targets`` (B, S) tensors on the state's device.
+    ``state`` is donated: the returned state holds its params and optimizer
+    leaves, updated in place (``optim.adamw_update``).
+    ``metrics``: the JAX package's ``loss``, ``aux`` and ``lr``, and the
+    gradients' ``grad_norm`` (before clipping).
+
+    ``microbatch``: split the batch into that many sequential micro-steps
+    and accumulate their gradients in float32.
+    """
+    check_trainable(cfg)
+
+    def train_step(state: TrainState, batch: dict):
+        tokens, targets = batch["tokens"], batch["targets"]
+        if microbatch and microbatch > 1:
+            B = tokens.shape[0]
+            if B % microbatch:
+                raise ValueError(
+                    f"global batch size {B} is not divisible by "
+                    f"microbatch={microbatch}; pick a microbatch count that "
+                    f"divides the batch (e.g. {B} % {microbatch} == 0)")
+            mbs = B // microbatch
+            loss = aux = 0.0
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), state.params)
+            for i in range(microbatch):
+                rows = slice(i * mbs, (i + 1) * mbs)
+                l, a, g = _grads_of(cfg, state.params, tokens[rows], targets[rows], state.step)
+                grads = tree_map(torch.add, grads, g)
+                loss, aux = loss + l, aux + a
+            loss, aux = loss / microbatch, aux / microbatch
+            grads = tree_map(lambda g: g / microbatch, grads)
+        else:
+            loss, aux, grads = _grads_of(cfg, state.params, tokens, targets, state.step)
+        lr = cosine_warmup(state.step, peak_lr=peak_lr, warmup=warmup, total=total_steps)
+        params, opt = adamw_update(grads, state.opt, state.params, lr)
+        metrics = {"loss": loss, "aux": aux, "lr": lr, "grad_norm": global_norm(grads)}
+        return TrainState(params, opt, state.step + 1), metrics
+
+    return train_step
+
+
+def make_grads_step(cfg: ModelConfig):
+    """Forward and backward only (one microbatch's worth) -> grads."""
+    check_trainable(cfg)
+
+    def grads_step(params, batch):
+        return _grads_of(cfg, params, batch["tokens"], batch["targets"], None)[2]
+
+    return grads_step
 
 
 def make_prefill_step(cfg: ModelConfig):
@@ -13,7 +137,7 @@ def make_prefill_step(cfg: ModelConfig):
 
     @torch.inference_mode()
     def prefill_step(params, batch):
-        return forward(cfg, params, batch["tokens"], last_only=True)[:, 0, :]
+        return forward(cfg, params, batch["tokens"], last_only=True)[0][:, 0, :]
 
     return prefill_step
 

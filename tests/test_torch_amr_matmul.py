@@ -168,7 +168,7 @@ def test_saturation_guard_raises_where_jax_does(k, raises):
 
 
 def test_unported_modes_refused():
-    for mode in tapprox._NOT_YET_PORTED:
+    for mode in tapprox.registry.NOT_YET_PORTED:
         with pytest.raises(NotImplementedError):
             tapprox.AMRNumerics(mode)
     with pytest.raises(ValueError):

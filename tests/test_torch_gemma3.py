@@ -101,7 +101,7 @@ def test_forward_prefill_decode_match_jax(mode):
     jt, tt = jnp.asarray(toks, jnp.int32), torch.from_numpy(toks)
 
     with torch.inference_mode():
-        _check(tforward(tcfg, tp, tt), jax.jit(lambda p, t: jforward(jcfg, p, t)[0])(jp, jt),
+        _check(tforward(tcfg, tp, tt)[0], jax.jit(lambda p, t: jforward(jcfg, p, t)[0])(jp, jt),
                tight)
         tl, tc = tprefill(tcfg, tp, tt, CAP)
     jl, jc = jax.jit(lambda p, t: jprefill(jcfg, p, t, CAP))(jp, jt)
@@ -130,7 +130,7 @@ def test_ring_first_fill(S):
     toks = np.random.default_rng(S).integers(0, jcfg.vocab, (2, S + 3))
     cap = S + 4
     with torch.inference_mode():
-        full = tforward(tcfg, tp, torch.from_numpy(toks)).numpy()
+        full = tforward(tcfg, tp, torch.from_numpy(toks))[0].numpy()
         tl, tc = tprefill(tcfg, tp, torch.from_numpy(toks[:, :S]), cap)
     jl, jc = jax.jit(lambda p, t: jprefill(jcfg, p, t, cap))(jp, jnp.asarray(toks[:, :S]))
     assert tc[0].k.shape[2] == min(cap, WINDOW) and tc[1].k.shape[2] == cap

@@ -82,7 +82,7 @@ def _field(cfg, name):
     return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
 
 
-@pytest.mark.parametrize("arch", ["gemma_2b", "gemma3_1b", "mamba2_370m"])
+@pytest.mark.parametrize("arch", ["gemma_2b", "gemma3_1b", "mamba2_370m", "amr_paper"])
 def test_config_fields_match_jax(arch):
     jmod = importlib.import_module(f"repro.configs.{arch}")
     tmod = importlib.import_module(f"repro_torch.configs.{arch}")
@@ -101,7 +101,7 @@ def test_forward_prefill_decode_match_jax(mode, dtype):
     jt, tt = jnp.asarray(toks, jnp.int32), torch.from_numpy(toks)
 
     with torch.inference_mode():
-        _check(tforward(tcfg, tp, tt), _jit(lambda p, t: jforward(jcfg, p, t)[0], jp, jt),
+        _check(tforward(tcfg, tp, tt)[0], _jit(lambda p, t: jforward(jcfg, p, t)[0], jp, jt),
                dtype, exact)
         tl, tc = tprefill(tcfg, tp, tt, CAP)
     jl, jc = _jit(lambda p, t: jprefill(jcfg, p, t, CAP), jp, jt)

@@ -329,7 +329,7 @@ def test_forward_prefill_decode_match_jax(mode, dtype):
     jf, (jl, jc) = _jit(lambda p, t: (jforward(jcfg, p, t)[0], jprefill(jcfg, p, t, CAP)),
                         jp, jt)
     with torch.inference_mode():
-        _check(tforward(tcfg, tp, tt), jf, dtype, mode)
+        _check(tforward(tcfg, tp, tt)[0], jf, dtype, mode)
         tl, tc = tprefill(tcfg, tp, tt, CAP)
     _check(tl, jl, dtype, mode)
     for j_st, t_st in zip(jc, tc):

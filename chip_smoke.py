@@ -36,7 +36,15 @@ Phases (any failure raises, and the run exits non-zero):
    at S = 2048 (8 chunks) with the model's dt, and at S = 1024 and 2048
    with dt scaled so that the state carried from chunk to chunk exceeds
    the bound a hundredfold (the model's dt decays it to 0 within a chunk,
-   where no check can see it), with event and device ms;
+   where no check can see it), with event and device ms; the SSD backward
+   kernel (``ssd_scan_bwd``) against the plain backward (autograd through
+   the plain scan), in full and split mode, every gradient within
+   ``ssd_scan.ref.ssd_grad_rtol`` of its max, at mamba2-370m's widths (S =
+   16, 1024 and its training shape 4 x 2048) and zamba2-1.2b's (its
+   training shape 2 x 1024), with the model's dt and with dt scaled so
+   that the gradient the reverse join carries across chunks exceeds the
+   tolerance a hundredfold; event and device ms beside the forward's at
+   the same shape (``ssd_bwd_kernel_rows``);
 2b. A/B, with ``--parent`` (a tree of the parent commit, for example
    ``git archive`` unpacked under ``build/``): the gather kernels (border
    8) at the gemma-2b and mamba2-370m rank-0 paths' shapes, the low-rank
@@ -54,7 +62,8 @@ Phases (any failure raises, and the run exits non-zero):
    and amr_inject, reduced mamba2-370m under exact (SSD kernel in full
    mode) and amr_kernel rank 0 (split mode), and reduced gemma3-1b under
    rank 0 and amr_inject (one more prompt, of 11 tokens, past its window
-   of 8): tokens equal, logits within 1e-3 * max|logit|;
+   of 8), and reduced zamba2-1.2b under exact and rank 0: tokens equal,
+   logits within 1e-3 * max|logit|;
 4. attn_fused — the fused AMR attention op (``kernels/attn_fused``), which
    no served step dispatches (the models run the unfused seam, as the JAX
    package's do), at gemma-2b's attention width (8 heads, 1 KV head,
@@ -112,6 +121,14 @@ Phases (any failure raises, and the run exits non-zero):
    two grouped gather launches each), whose output equals the one-block
    form's bit for bit.  Phase 2 holds the kernels at gemma3-1b's shapes
    too, and phase 3 serves reduced gemma3-1b (window 8) on card and CPU;
+8b. zamba2-1.2b — full width (38 layers: 2 groups of 18 Mamba2 blocks and
+   one application of the shared attention + MLP block, d_model 2048, 32
+   heads of 64, d_ff 8192 geglu, d_state 64, vocab 32000, random weights
+   from seed 0) through ``ServeEngine`` at rank 0 and rank 8 (4 x 8) and
+   under amr_inject (2 x 4): the gathers, the low-rank or the replay
+   kernel with the SSD kernel and no other, the SSD kernel 36 times per
+   prefill and never in decode; batched vs solo bit for bit in each; a
+   profile at rank 0;
 9. train — (a) reduced amr-paper-100m in float32 trained on the card
    (kernels) and on the CPU (plain versions) from the same weights on the
    same ``SyntheticLM`` batches under its four training policies
@@ -136,6 +153,13 @@ Phases (any failure raises, and the run exits non-zero):
    one profiled step; (c) ``FaultTolerantLoop`` on full-width amr-paper-100m
    under amr_inject, 4 steps straight and 2 + a raised failure + a restore
    + 2: the float32 losses and every leaf of the final state bit for bit;
+   and for the SSM and hybrid families: (a) reduced mamba2-370m and
+   zamba2-1.2b in float32, card vs CPU, under exact and rank 0 (loss 1e-4
+   relative, each gradient leaf within 1e-3 of its max, the unread leaves
+   zero); (b) full-width mamba2-370m at rank 0 and rank 8 (4 x 2048) and
+   zamba2-1.2b at rank 8 (2 x 1024), remat "block": the SSD kernel twice
+   per Mamba2 layer a step, its backward once; (c) the restart on
+   full-width mamba2-370m at rank 0 (2 x 2048);
    (d) with phase 2, the gathers, the low-rank and the replay kernel at
    amr-paper-100m's training shapes (M = 2048; (768, 768), (768, 3072),
    (3072, 768); attn.qk / attn.pv over 96 groups of 256 x 64 x 256), border
@@ -155,7 +179,9 @@ float32 scales, the int32 mask, the table for lut) and the float32 output;
 the lut kernel 2 operations (a gather, an add) per product of QK^T and of
 PV, the inject kernel ``replay_ops`` for both products; QK^T only where
 the mask keeps the score (per 32-column word for inject), PV over every
-column, since AMR(0, v) is not 0.
+column, since AMR(0, v) is not 0.  The SSD backward counts each product
+it needs once (``ssd_bwd_work``; the kernel computes the masked tiles
+twice).
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers, and ``{"ok": true, "device": {...}}``.
@@ -185,6 +211,9 @@ BORDER, RANK = 8, 8
 SLOTS, PROMPT_LEN, GEN, REQUESTS = 2, 16, 8, 4
 SSD_LONG = 1024  # the longer SSD shape: 4 chunks of 256
 SSD_CONTEXT = 2048  # the Mamba2 models' training context: 8 chunks, more blocks than SMs
+MAMBA_TRAIN_BATCH = 4                   # mamba2-370m training: 4 x 2048 tokens a step
+ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_SEQ = 2, 1024  # zamba2-1.2b training: 2 x 1024
+GRAD_NAMES = ("dx", "ddt", "da_log", "db", "dc")
 INJECT_GEN, INJECT_REQUESTS = 4, 2
 CAPACITY = PROMPT_LEN + GEN
 G3_PROMPT, G3_CAPACITY = 600, 640  # gemma3-1b's long rank-0 run: past its 512-token window
@@ -233,28 +262,66 @@ def time_ms(fn, arg_sets, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, arg_sets, reps: int) -> float:
-    """Mean device ms per call: the self time of every CUDA kernel that
-    ``reps`` calls launch under torch.profiler, over ``reps`` (the host's
-    share of a call, which ``time_ms`` includes when calls are short, is
-    left out)."""
-    import torch
-    from torch.autograd import DeviceType
+def profile_windows(body, what: str, setup=lambda: None) -> tuple:
+    """``body(setup())`` with ``body`` under torch.profiler, again in a window
+    of its own (at most PROFILE_WINDOWS) while the profiler records no device
+    time: it now and then records no kernel of a window, several windows in
+    a row, on the card's machine.  Returns (``body``'s last result, the
+    window's ``device_rows``), with no rows where every window came back
+    empty."""
     from torch.profiler import ProfilerActivity, profile
+
+    for window in range(PROFILE_WINDOWS):
+        arg = setup()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = body(arg)
+        rows = device_rows(prof)
+        if rows:
+            return out, rows
+        log(f"[profile] {what}: no device time recorded in window {window + 1} of "
+            f"{PROFILE_WINDOWS}")
+        time.sleep(0.5)
+    return out, []
+
+
+PROFILE_WINDOWS = 5
+
+
+def warm_profiler(device) -> None:
+    """Open the profiler on a trivial kernel until a window records device
+    time, so that the measured windows do not pay for its first start."""
+    import torch
+
+    x = torch.ones(1 << 20, device=device)
+    _, rows = profile_windows(lambda _: (x * 2, torch.cuda.synchronize()), "warm-up")
+    log(f"[profile] warm-up: {'recorded' if rows else 'no'} device time")
+
+
+def device_ms(fn, arg_sets, reps: int) -> float:
+    """Mean device ms per call: the time of every CUDA kernel that ``reps``
+    calls launch under torch.profiler, over ``reps`` (the host's share of a
+    call, which ``time_ms`` includes when calls are short, is left out).
+    Where the profiler records no device time in PROFILE_WINDOWS windows,
+    the CUDA-event time of ``time_ms`` instead, which the log says: an upper
+    bound on the device time."""
+    import torch
 
     fn(*arg_sets[0])
     torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then records no kernel of a window
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for i in range(reps):
-                fn(*arg_sets[i % len(arg_sets)])
-            torch.cuda.synchronize()
-        us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                 if ev.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / reps / 1e3
-        log("[profile] no device time recorded in a window; profiling it again")
-    raise AssertionError("the profiler recorded no device time in three windows")
+
+    def body(_):
+        for i in range(reps):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+
+    name = getattr(fn, "__name__", repr(fn))
+    _, rows = profile_windows(body, f"device_ms of {name}")
+    if rows:
+        return sum(r[0] for r in rows) / reps / 1e3
+    ms = time_ms(fn, arg_sets, reps)
+    log(f"[profile] device_ms of {name}: not measured by the profiler; CUDA-event time "
+        f"{ms} ms per call in its place")
+    return ms
 
 
 def host_ms(fn, arg_sets, reps: int) -> float:
@@ -395,19 +462,21 @@ def gather_shapes(cfg, mamba_cfg, g3_cfg=None) -> list[tuple]:
     return out
 
 
-def phase_kernels(device, cfg, mamba_cfg, g3_cfg) -> dict:
+def phase_kernels(device, cfg, mamba_cfg, g3_cfg, zamba_cfg) -> dict:
     """Every kernel against its plain version at the main paths' shapes:
-    gemma-2b's and gemma3-1b's (``cfg``, ``g3_cfg``), mamba2-370m's."""
+    gemma-2b's and gemma3-1b's (``cfg``, ``g3_cfg``), mamba2-370m's and, for
+    the SSD backward, zamba2-1.2b's."""
     import torch
 
     from repro_torch.core import lut
     from repro_torch.kernels.amr_matmul import kernel, ref
 
     gen = torch.Generator(device=device).manual_seed(0)
-    rows: dict[str, list[dict]] = {"lowrank": [], "replay": [], "ssd": []}
+    rows: dict[str, list[dict]] = {"lowrank": [], "replay": [], "ssd": [], "ssd_bwd": []}
     int_rate = int_ops_per_s(device)
     log(f"[kernel] integer rate {int_rate / 1e12:.2f} T/s, float32 rate "
         f"{PEAK_FLOAT_OPS_PER_S / 1e12:.0f} T/s, memory {PEAK_BYTES_PER_S / 1e12:.2f} TB/s")
+    warm_profiler(device)
 
     # the gather kernels: dense sites and grouped products at rank 0, all three models
     rows = {**gather_kernel_rows(device, cfg, mamba_cfg, g3_cfg, gen, int_rate), **rows}
@@ -454,6 +523,7 @@ def phase_kernels(device, cfg, mamba_cfg, g3_cfg) -> dict:
     rows["replay"] = [dict(model=c.name, **r) for c in (cfg, g3_cfg)
                       for r in replay_kernel_rows(device, *path_shapes(c), int_rate)]
     rows["ssd"] = ssd_kernel_rows(device, mamba_cfg)
+    rows["ssd_bwd"] = ssd_bwd_kernel_rows(device, mamba_cfg, zamba_cfg)
     rows["train_shapes"] = training_kernel_rows(device, int_rate)
     for name, rs in rows.items():
         if name == "train_shapes":
@@ -686,6 +756,105 @@ def ssd_kernel_rows(device, mcfg) -> list[dict]:
     return out
 
 
+def ssd_bwd_work(B: int, S: int, H: int, P: int, N: int, chunk: int, split: bool) -> int:
+    """Float32 operations the SSD backward needs for S rows (an FMA counted
+    as two), each product once, as ``ssd_work`` counts the forward's: per
+    chunk of L rows and head, the lower triangle's L (L + 1) / 2 pairs take
+    the C.B and dy.u dots (N + P) and the products into dC, dB and du (2 N
+    + P); the state terms u D^T and B D take 2 L N P; in full mode, after
+    the first chunk, the readout's C^T dy and dy h^T 2 L N P more."""
+    ops = 0
+    for ci in range(math.ceil(S / chunk)):
+        L = min(chunk, S - ci * chunk)
+        per_head = L * (L + 1) // 2 * 2 * (3 * N + 2 * P) + 2 * 2 * L * N * P
+        if not split and ci > 0:
+            per_head += 2 * 2 * L * N * P
+        ops += B * H * per_head
+    return ops
+
+
+def ssd_bwd_kernel_rows(device, mcfg, zcfg) -> list[dict]:
+    """The SSD backward kernel against the plain backward (torch autograd
+    through ``ref.ssd_ref``), in full and split mode: every gradient within
+    ``ref.ssd_grad_rtol`` of its largest |value| (1e-4, plus the relative
+    error of a decay factor when the two sides round the cumulative log
+    decay in other orders, plus one bf16 step on a bf16 gradient).  At
+    mamba2-370m's widths a 16-token prompt, S = 1024 and its training shape
+    (4 x 2048), and at zamba2-1.2b's (H 64, P 64, N 64) its training shape
+    (2 x 1024), with the model's dt and, but at S = 16, with dt scaled so
+    that a chunk decays the state by exp(-0.5): there the part of dx, ddt,
+    da_log and db that the reverse join carries across chunks
+    (``ssd_carried_grads``) must exceed the tolerance a hundredfold, which
+    the model's dt (a chunk decays the state to 0) hides.  Each row has the
+    backward's event and device ms, the forward's at the same shape (keeping
+    its states, as under autograd), the plain backward's ms and the bound."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+    from repro_torch.kernels.ssd_scan import ref as sref
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    out = []
+    cases = [(mcfg, 1, PROMPT_LEN, "model dt"), (mcfg, 1, SSD_LONG, "model dt"),
+             (mcfg, 1, SSD_LONG, "carry"), (mcfg, MAMBA_TRAIN_BATCH, SSD_CONTEXT, "model dt"),
+             (mcfg, MAMBA_TRAIN_BATCH, SSD_CONTEXT, "carry"),
+             (zcfg, ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_SEQ, "model dt"),
+             (zcfg, ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_SEQ, "carry")]
+    for cfg, B, S, inputs in cases:
+        H, P, N, G, Q = ssd_widths(cfg)
+        args = ssd_inputs(device, gen, S, H, P, N, G, Q, carry=inputs == "carry", batch=B)
+        nc = math.ceil(S / Q)
+        rtol = sref.ssd_grad_rtol(args[1], args[2], Q)
+        for split in (False, True):
+            dy = torch.randn((B, S, H, P), generator=gen, device=device)
+            dh_final = torch.randn((B, H, N, P), generator=gen, device=device)
+            dh_prev = torch.randn((B, nc, H, N, P), generator=gen, device=device) if split \
+                else None
+            _, h_prev, _ = skernel._scan_cuda(*args, Q, split, keep_states=True)
+            bwd_args = (*args, h_prev, dy, dh_prev, dh_final, Q)
+            got = skernel.ssd_scan_bwd(*bwd_args)
+            grads = (dy, dh_prev, dh_final) if split else (dy, dh_final)
+            want = sref.ssd_ref_grads(*args, Q, grads, split=split)
+            torch.cuda.synchronize()
+            excess = {}
+            for name, g, w in zip(GRAD_NAMES, got, want):
+                if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"SSD backward {cfg.name} S={S} split={split}: {name} "
+                                         f"shape {tuple(g.shape)} vs {tuple(w.shape)} or "
+                                         f"non-finite")
+                excess[name] = sref.ssd_grad_excess(g, w, rtol)
+            if not max(excess.values()) <= 1.0:
+                raise AssertionError(f"SSD backward {cfg.name} S={S} split={split} {inputs}: "
+                                     f"beyond the tolerance of the plain backward {excess}")
+            carried = {}
+            if inputs == "carry":
+                parts = sref.ssd_carried_grads(*args, Q, grads, split=split)
+                for name, cr, w in zip(GRAD_NAMES[:4], parts, want):
+                    carried[name] = float(cr.abs().max()) / (rtol * float(w.float().abs().max()))
+                if not min(carried.values()) >= 100.0:
+                    raise AssertionError(f"SSD backward check {cfg.name} S={S} split={split}: "
+                                         f"the reverse join is not visible above the "
+                                         f"tolerance {carried}")
+            nbytes = sum(t.numel() * t.element_size() for t in
+                         (*args, h_prev, dy, dh_final, *got) + ((dh_prev,) if split else ()))
+            b_ms, b_by = bound(nbytes, ssd_bwd_work(B, S, H, P, N, Q, split),
+                               PEAK_FLOAT_OPS_PER_S)
+            times = call_times(skernel.ssd_scan_bwd, [bwd_args], 20)
+            fwd = call_times(lambda *a: skernel._scan_cuda(*a, Q, split, keep_states=True),
+                             [args], 20)
+            out.append(dict(
+                model=cfg.name, shape=(B, S, H, P, N), inputs=inputs,
+                mode="split" if split else "full", max_abs_err=max(
+                    float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)),
+                excess=excess, rtol=rtol, carried_over_tol=carried, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, **times, fwd_ms=fwd["ms"],
+                fwd_device_ms=fwd["device_ms"],
+                plain_ms=time_ms(lambda *a: sref.ssd_ref_grads(*a, Q, grads, split=split),
+                                 [args], 3)))
+            del got, want, h_prev
+    return out
+
+
 def ssd_widths(mcfg) -> tuple[int, int, int, int, int]:
     """(H, P, N, G, chunk) of a Mamba2 config's SSD scan."""
     from repro_torch.models.ssm import ssm_dims
@@ -695,10 +864,11 @@ def ssd_widths(mcfg) -> tuple[int, int, int, int, int]:
             mcfg.ssm.chunk)
 
 
-def ssd_inputs(device, gen, S, H, P, N, G, Q, carry=False) -> tuple:
-    """(x, dt, a_log, b, c) of one sequence: bf16 x, b, c; a_log at its
-    init; dt the softplus of a projection, or with ``carry`` scaled per head
-    so that a chunk of Q rows decays the state by exp(-0.5) on average."""
+def ssd_inputs(device, gen, S, H, P, N, G, Q, carry=False, batch=1) -> tuple:
+    """(x, dt, a_log, b, c) of ``batch`` sequences: bf16 x, b, c; a_log at
+    its init; dt the softplus of a projection, or with ``carry`` scaled per
+    head so that a chunk of Q rows decays the state by exp(-0.5) on
+    average."""
     import torch
 
     def normal(*shape):
@@ -706,11 +876,11 @@ def ssd_inputs(device, gen, S, H, P, N, G, Q, carry=False) -> tuple:
 
     a_log = torch.log(torch.linspace(1.0, 16.0, H, device=device))
     if carry:
-        dt = torch.rand((1, S, H), generator=gen, device=device) / (torch.exp(a_log) * Q)
+        dt = torch.rand((batch, S, H), generator=gen, device=device) / (torch.exp(a_log) * Q)
     else:
-        dt = torch.nn.functional.softplus(normal(1, S, H))
-    return (normal(1, S, H, P).bfloat16(), dt, a_log, normal(1, S, G, N).bfloat16(),
-            normal(1, S, G, N).bfloat16())
+        dt = torch.nn.functional.softplus(normal(batch, S, H))
+    return (normal(batch, S, H, P).bfloat16(), dt, a_log, normal(batch, S, G, N).bfloat16(),
+            normal(batch, S, G, N).bfloat16())
 
 
 def time_kernels() -> dict:
@@ -731,6 +901,7 @@ def time_kernels() -> dict:
     from repro_torch.kernels.inject_replay import kernel as rkernel
 
     device = torch.device("cuda")
+    warm_profiler(device)
     gen = torch.Generator(device=device).manual_seed(5)
     dense_m, dense_kn, grouped = path_shapes(gemma_2b.CONFIG)
     from repro_torch.kernels.ssd_scan import kernel as skernel
@@ -828,11 +999,11 @@ def phase_ab(parent: Path) -> dict:
 
 
 def phase_reference(device) -> None:
-    """Reduced gemma-2b, mamba2-370m and gemma3-1b, float32: the card's
-    kernels against the CPU's plain versions.  gemma3-1b's window of 8
-    tokens: one prompt of 11 rolls its ring in prefill, the others wrap it
+    """Reduced gemma-2b, mamba2-370m, gemma3-1b and zamba2-1.2b, float32: the
+    card's kernels against the CPU's plain versions.  gemma3-1b's window of
+    8 tokens: one prompt of 11 rolls its ring in prefill, the others wrap it
     in decode."""
-    from repro_torch.configs import gemma3_1b, mamba2_370m
+    from repro_torch.configs import gemma3_1b, mamba2_370m, zamba2_1p2b
     from repro_torch.configs.gemma_2b import reduced
     from repro_torch.kernels.ssd_scan import kernel as skernel
     from repro_torch.models import init_params
@@ -846,7 +1017,9 @@ def phase_reference(device) -> None:
              (mamba2_370m.reduced(), AMRNumerics("exact")),
              (mamba2_370m.reduced(), AMRNumerics("amr_kernel", border=BORDER, rank=0)),
              (gemma3_1b.reduced(), AMRNumerics("amr_kernel", border=BORDER, rank=0)),
-             (gemma3_1b.reduced(), AMRNumerics("amr_inject", border=BORDER))]
+             (gemma3_1b.reduced(), AMRNumerics("amr_inject", border=BORDER)),
+             (zamba2_1p2b.reduced(), AMRNumerics("exact")),
+             (zamba2_1p2b.reduced(), AMRNumerics("amr_kernel", border=BORDER, rank=0))]
     prompts = [(5, 9, 2, 7), (3, 11, 4, 1, 8, 6), (13, 2), (9, 7, 9, 1, 2)]
     for base, nm in cases:
         cfg = dataclasses.replace(base, dtype="float32", numerics=nm)
@@ -868,7 +1041,7 @@ def phase_reference(device) -> None:
         top = max(float(np.abs(x).max()) for c in cpu for x in c.logits)
         if not diff <= 1e-3 * top:
             raise AssertionError(f"reduced model under {nm}: logits differ by {diff}")
-        if (cfg.family == "ssm") != (skernel.SSD.launches > 0):
+        if (cfg.ssm is not None) != (skernel.SSD.launches > 0):
             raise AssertionError(f"reduced {cfg.name} under {nm}: SSD kernel launched "
                                  f"{skernel.SSD.launches} times")
         log(f"[reference] reduced {cfg.name} f32 {nm}: tokens equal, "
@@ -1340,6 +1513,35 @@ def phase_gemma3(device, card: str, cfg) -> dict:
     return launches
 
 
+def phase_zamba2(device, card: str, cfg) -> dict:
+    """Full-width zamba2-1.2b (38 layers: 2 groups of 18 Mamba2 blocks and
+    one application of the shared attention + MLP block, d_model 2048, 32
+    heads of 64, d_ff 8192 geglu, d_state 64, vocab 32000, random weights
+    from seed 0) through ``ServeEngine``: rank 0 and rank 8 (4 requests x 8
+    tokens), amr_inject (2 x 4); each run again with request 0 alone (the
+    same bits), and rank 0 under the profiler.  Rank 0 launches the gathers
+    and the SSD kernel, rank 8 the low-rank kernel and the SSD kernel,
+    amr_inject the replay and the SSD kernel, and no other (the fused
+    attention kernels never); the SSD kernel once per Mamba2 layer per
+    prefill (36) and never in decode.  Returns each run's launch counts."""
+    from repro_torch.numerics import AMRNumerics
+
+    runs = {
+        "rank 0": Run(AMRNumerics("amr_kernel", border=BORDER, rank=0), REQUESTS, GEN,
+                      GATHERS | {"ssd_scan"}),
+        f"rank {RANK}": Run(AMRNumerics("amr_kernel", border=BORDER, rank=RANK), REQUESTS, GEN,
+                            {"amr_matmul_int8", "ssd_scan"}),
+        "amr_inject": Run(AMRNumerics("amr_inject", border=BORDER), INJECT_REQUESTS, INJECT_GEN,
+                          {"inject_replay", "ssd_scan"}),
+    }
+    n_ssm = cfg.pattern.kinds.count("ssm") * cfg.pattern.n_repeat
+    params = model_params(device, cfg)
+    launches = serve_model(device, card, cfg, params, runs, tuple(runs), ("rank 0",),
+                           {"ssd_scan": n_ssm})
+    params.clear()
+    return launches
+
+
 def chunked_prefill(device, card: str, cfg, params) -> None:
     """One full-width gemma3-1b attention layer prefilled at S = 16384 under
     rank 0, its first window layer (512) and its first global layer: the
@@ -1590,40 +1792,143 @@ def phase_train_parity(device) -> None:
                 f"(losses {l_ctl})")
 
 
-def _profiled_step(step, state, batch) -> tuple:
-    """One more train step under torch.profiler: (state, wall ms, device busy ms)."""
+def phase_train_parity_ssm(device) -> None:
+    """Phase 9a for the SSM and hybrid families: reduced mamba2-370m and
+    zamba2-1.2b in float32 on the card (the SSD kernel and its backward) and
+    on the CPU (plain versions, autograd through the plain scan), the same
+    weights and ``SyntheticLM`` batches of 40 tokens (a ragged third chunk
+    of 16), under exact (the scan in full mode) and rank 0 (split mode),
+    by the rank-0 rules: one step's gradients (each leaf within
+    PARITY_GRAD_TOL of its max; the unread leaves zero on both) and two
+    AdamW steps' losses (PARITY_LOSS_RTOL).  The quantizations of one
+    forward are printed (``_trace_rule``), not held to its 1e-3 steps:
+    the SSD scan's float32 sums run in another order on the card and move
+    the values that later sites quantize by more (an index moving at a tie
+    would show in the gradients).  The card launches the SSD kernel and
+    its backward."""
     import torch
+
+    from repro_torch.configs import mamba2_370m, zamba2_1p2b
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+    from repro_torch.models import init_params, unread_params
+    from repro_torch.models.tree import tree_items
+    from repro_torch.numerics import AMRNumerics
+
+    cpu = torch.device("cpu")
+    for base in (mamba2_370m.reduced(), zamba2_1p2b.reduced()):
+        cfg = dataclasses.replace(base, dtype="float32")
+        data = SyntheticLM(vocab=cfg.vocab, seq_len=40, batch=2, seed=0)
+        params = init_params(cfg, 0, device="cpu")
+        unread = unread_params(cfg)
+        for nm in (AMRNumerics("exact"), AMRNumerics("amr_kernel", border=BORDER, rank=0)):
+            c = dataclasses.replace(cfg, numerics=nm)
+            t_cpu, g_cpu, l_cpu = _parity_run(c, params, data, cpu)
+            skernel.SSD.launches = skernel.SSD_BWD.launches = 0
+            t_card, g_card, l_card = _parity_run(c, params, data, device)
+            launched = (skernel.SSD.launches, skernel.SSD_BWD.launches)
+            if not min(launched) > 0:
+                raise AssertionError(f"[train] parity {cfg.name} {nm.mode}: SSD launches "
+                                     f"{launched}")
+            trace = _trace_rule(t_card, t_cpu)
+            failed = _loss_and_grad_rules(l_card, l_cpu, g_card, g_cpu, PARITY_LOSS_RTOL, False)
+            failed += [k for g in (g_card, g_cpu) for k, leaf in tree_items(g)
+                       if k in unread and leaf.any()]
+            if failed:
+                raise AssertionError(f"[train] parity {cfg.name} {nm.mode}: {failed} {trace}")
+            want = dict(tree_items(g_cpu))
+            worst = max(_leaf_rule(g, want[k], False)[1] for k, g in tree_items(g_card))
+            log(f"[train] parity reduced {cfg.name} f32 {nm.mode} rank {nm.rank}: quantizations "
+                f"card vs CPU {trace}; losses card {l_card} vs CPU {l_cpu} (rtol "
+                f"{PARITY_LOSS_RTOL}); gradients: max over leaves of max |diff| / max |CPU| "
+                f"{worst:.3g} (<= {PARITY_GRAD_TOL}), {len(unread)} unread leaves zero; "
+                f"SSD forward and backward launches {launched}")
+
+
+def device_rows(prof) -> list[tuple[float, int, str]]:
+    """(device us, launches, name) of each kernel, copy and memset of a
+    profile, most time first, summed from the profiler's raw device events.
+    ``key_averages()`` gives the same sums but first parses every host event
+    into a tree, which took up to 164 s for one training step of hundreds of
+    thousands of ops; where a profile holds at most MAX_PARSED_EVENTS events
+    the two are held together."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    events = prof.profiler.kineto_results.events()
+    by_name: dict[str, list] = {}
+    for ev in events:
+        if ev.device_type() == DeviceType.CUDA and not ev.is_user_annotation():
+            row = by_name.setdefault(ev.name(), [0.0, 0])
+            row[0] += ev.duration_ns() / 1e3
+            row[1] += 1
+    rows = sorted(((us, n, name) for name, (us, n) in by_name.items() if us > 0), reverse=True)
+    if len(events) <= MAX_PARSED_EVENTS:
+        parsed = sum(ev.self_device_time_total for ev in prof.key_averages()
+                     if ev.device_type == DeviceType.CUDA)
+        raw = sum(r[0] for r in rows)
+        if not abs(parsed - raw) <= 1e-2 * max(raw, 1.0):
+            raise AssertionError(f"device time from the raw events {raw} us, from "
+                                 f"key_averages {parsed} us")
+    return rows
+
+
+MAX_PARSED_EVENTS = 50_000
+
+
+def _profiled_step(step, state, batch) -> tuple:
+    """One more train step under torch.profiler (a step more for each window
+    in which the profiler recorded no device time): (state, wall ms, device
+    busy ms, the kernels that took most device time), busy ms None where no
+    window recorded device time."""
+    import torch
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    box = [state]
+
+    def body(_):
         t0 = time.perf_counter()
-        state, _ = step(state, batch)
+        box[0], _ = step(box[0], batch)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA) / 1e3
-    if busy <= 0:
-        raise AssertionError("the profiler recorded no device time in a train step")
-    return state, wall, busy
+        return (time.perf_counter() - t0) * 1e3
+
+    wall, rows = profile_windows(body, "train step")
+    busy = sum(r[0] for r in rows) / 1e3 if rows else None
+    top = [(round(us / 1e3, 1), n, name[:60]) for us, n, name in rows[:4]]
+    return box[0], wall, busy, top
 
 
-def train_run(device, card: str, cfg, label: str, uses: set, batch: int, seq: int) -> dict:
+def busy_text(busy, wall: float) -> str:
+    """The device busy ms and idle share of a profiled step, or that the
+    profiler measured neither."""
+    if busy is None:
+        return "device busy and idle share not measured (no window recorded device time)"
+    return f"device busy {busy:.1f} ms, idle share {1 - busy / wall:.3f}"
+
+
+# a backward kernel and the forward kernel it differentiates: per step it
+# launches as often as one forward launches its forward kernel
+BACKWARD_OF = {"ssd_scan_bwd": "ssd_scan"}
+
+
+def train_run(device, card: str, cfg, label: str, uses: set, batch: int,
+              seq: int) -> tuple[dict, dict]:
     """One training run of full-width ``cfg`` (random weights from seed 0):
     a warm step and TRAIN_STEPS timed steps on SyntheticLM batches.  The
     launch counts are set to 0 before the run and read after it: the kernels
     in ``uses`` launch, no other; each launches, per step, the count of one
     forward (run alone, under no_grad, on the first batch) times 2 under
-    ``remat="block"`` (the recompute) and times 1 under ``"none"``.  Losses
-    and gradient norms finite.  Then one more step under the profiler.
-    Returns the launches per step by kernel."""
+    ``remat="block"`` (the recompute) and times 1 under ``"none"``, and a
+    backward kernel (``BACKWARD_OF``) as often as one forward launches its
+    forward kernel.  Losses and gradient norms finite.  Then one more step
+    under the profiler.  Returns the launches per step and in the run, by
+    kernel."""
     import torch
 
     from repro_torch.data import SyntheticLM
     from repro_torch.models import forward
     from repro_torch.train.steps import make_train_state, make_train_step
 
+    t_run = time.perf_counter()
     kernels = all_kernels()
     data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch, seed=0)
     state = make_train_state(cfg, 0, device=device)
@@ -1651,65 +1956,96 @@ def train_run(device, card: str, cfg, label: str, uses: set, batch: int, seq: in
     peak = torch.cuda.max_memory_allocated() / 2**30
     mult = 2 if cfg.remat == "block" else 1
     for name, n in counts.items():
-        if (name in uses) != (n > 0) or n != (1 + TRAIN_STEPS) * mult * per_forward[name]:
+        want = (per_forward[BACKWARD_OF[name]] if name in BACKWARD_OF
+                else mult * per_forward[name])
+        if (name in uses) != (n > 0) or n != (1 + TRAIN_STEPS) * want:
             raise AssertionError(f"[train] {cfg.name} {label} remat {cfg.remat}: kernel {name} "
-                                 f"launched {n} times in {1 + TRAIN_STEPS} steps; one forward "
-                                 f"launches it {per_forward[name]} times")
+                                 f"launched {n} times in {1 + TRAIN_STEPS} steps, not "
+                                 f"{1 + TRAIN_STEPS} x {want}; one forward launches "
+                                 f"{per_forward}")
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"[train] {cfg.name} {label}: losses {losses}, grad norms {norms}")
     ms = float(np.median(times[1:])) * 1e3
-    state, wall, busy = _profiled_step(step, state, _train_batch(data, 1 + TRAIN_STEPS, device))
+    state, wall, busy, top = _profiled_step(step, state,
+                                            _train_batch(data, 1 + TRAIN_STEPS, device))
     per_step = {k: n // (1 + TRAIN_STEPS) for k, n in counts.items() if n}
     log(f"[train] {cfg.name} {label} remat {cfg.remat} on {card}: {batch} x {seq} tokens a step, "
         f"{ms:.1f} ms per step (median of {TRAIN_STEPS} after a warm step of "
         f"{times[0] * 1e3:.0f} ms), {batch * seq / (ms / 1e3):.0f} tokens/s, peak memory "
-        f"{peak:.2f} GiB; profiled step {wall:.1f} ms wall, device busy {busy:.1f} ms (idle "
-        f"share {1 - busy / wall:.3f}); losses {[round(x, 4) for x in losses]}, grad norms "
-        f"{[round(x, 3) for x in norms]}; launches per step {per_step}")
+        f"{peak:.2f} GiB; profiled step {wall:.1f} ms wall, {busy_text(busy, wall)} (most "
+        f"device ms, launches: {top}); losses "
+        f"{[round(x, 4) for x in losses]}, grad norms {[round(x, 3) for x in norms]}; "
+        f"launches per step {per_step}; run {time.perf_counter() - t_run:.1f}s")
     del state
     torch.cuda.empty_cache()
-    return per_step
+    return per_step, counts
 
 
-def phase_train_full(device, card: str) -> dict:
+def phase_train_full(device, card: str) -> tuple[dict, dict]:
     """Phase 9b: full-width amr-paper-100m (12 layers, d_model 768, vocab
-    32000) at batch 8, seq 256 under its four training policies, then
-    full-width gemma3-1b at rank 8, batch 2, seq 512, remat "block" and
-    "none".  Returns each run's launches per step by label."""
-    from repro_torch.configs import amr_paper, gemma3_1b
+    32000) at batch 8, seq 256 under its four training policies; full-width
+    gemma3-1b at rank 8, batch 2, seq 512, remat "block" and "none";
+    full-width mamba2-370m at rank 0 and rank 8, batch 4, seq 2048 (8
+    chunks a sequence), and full-width zamba2-1.2b at rank 8, batch 2, seq
+    1024, both under remat "block": the SSD kernel twice per Mamba2 layer a
+    step (the forward and the recompute), its backward once.  Returns each
+    run's launches per step, and in the run, by label."""
+    from repro_torch.configs import amr_paper, gemma3_1b, mamba2_370m, zamba2_1p2b
     from repro_torch.numerics import AMRNumerics
 
-    runs = {}
-    for label, (nm, uses, _) in train_policies(amr_paper.CONFIG).items():
-        cfg = dataclasses.replace(amr_paper.CONFIG, numerics=nm)
-        runs[f"amr-paper-100m {label}"] = train_run(device, card, cfg, label, uses,
-                                                    TRAIN_BATCH, TRAIN_SEQ)
-    for remat in ("block", "none"):
-        cfg = dataclasses.replace(gemma3_1b.CONFIG, remat=remat,
-                                  numerics=AMRNumerics("amr_kernel", border=BORDER, rank=RANK))
-        runs[f"gemma3-1b rank {RANK} remat {remat}"] = train_run(
-            device, card, cfg, f"rank {RANK}", {"amr_matmul_int8"}, G3_TRAIN_BATCH, G3_TRAIN_SEQ)
-    return runs
+    rank8 = AMRNumerics("amr_kernel", border=BORDER, rank=RANK)
+    ssd = {"ssd_scan", "ssd_scan_bwd"}
+    plan = [(f"amr-paper-100m {label}", dataclasses.replace(amr_paper.CONFIG, numerics=nm),
+             label, uses, TRAIN_BATCH, TRAIN_SEQ)
+            for label, (nm, uses, _) in train_policies(amr_paper.CONFIG).items()]
+    plan += [(f"gemma3-1b rank {RANK} remat {remat}",
+              dataclasses.replace(gemma3_1b.CONFIG, remat=remat, numerics=rank8), f"rank {RANK}",
+              {"amr_matmul_int8"}, G3_TRAIN_BATCH, G3_TRAIN_SEQ) for remat in ("block", "none")]
+    plan += [("mamba2-370m rank 0", dataclasses.replace(
+                 mamba2_370m.CONFIG, numerics=AMRNumerics("amr_kernel", border=BORDER, rank=0)),
+              "rank 0", GATHERS | ssd, MAMBA_TRAIN_BATCH, SSD_CONTEXT),
+             (f"mamba2-370m rank {RANK}", dataclasses.replace(mamba2_370m.CONFIG, numerics=rank8),
+              f"rank {RANK}", {"amr_matmul_int8"} | ssd, MAMBA_TRAIN_BATCH, SSD_CONTEXT),
+             (f"zamba2-1.2b rank {RANK}", dataclasses.replace(zamba2_1p2b.CONFIG, numerics=rank8),
+              f"rank {RANK}", {"amr_matmul_int8"} | ssd, ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_SEQ)]
+    per_step, totals = {}, {}
+    for key, cfg, label, uses, batch, seq in plan:
+        per_step[key], totals[key] = train_run(device, card, cfg, label, uses, batch, seq)
+    return per_step, totals
 
 
 def phase_train_restart(device) -> None:
     """Phase 9c: ``FaultTolerantLoop`` on full-width amr-paper-100m under
-    amr_inject, checkpoints every 2 steps: 4 steps straight through, then 2
-    steps, a raised failure, a restore from the step-2 checkpoint and 2 more.
-    The float32 losses and every leaf of the final states equal bit for bit."""
+    amr_inject (2 x 256 tokens) and on full-width mamba2-370m at rank 0 (2 x
+    2048: the SSD kernel and its backward), checkpoints every 2 steps: 4
+    steps straight through, then 2 steps, a raised failure, a restore from
+    the step-2 checkpoint and 2 more.  The float32 losses and every leaf of
+    the final states equal bit for bit."""
+    from repro_torch.configs import amr_paper, mamba2_370m
+    from repro_torch.numerics import AMRNumerics
+
+    restart_run(device, dataclasses.replace(
+        amr_paper.CONFIG, numerics=AMRNumerics("amr_inject", border=BORDER)), "amr_inject",
+        2, TRAIN_SEQ)
+    restart_run(device, dataclasses.replace(
+        mamba2_370m.CONFIG, numerics=AMRNumerics("amr_kernel", border=BORDER, rank=0)),
+        "rank 0", 2, SSD_CONTEXT)
+
+
+def restart_run(device, cfg, label: str, batch: int, seq: int) -> None:
+    """4 steps straight and 2 + a raised failure + a restore + 2 of ``cfg``
+    through ``FaultTolerantLoop``: the same losses and final state, bit for
+    bit."""
     import tempfile
 
     import torch
 
-    from repro_torch.configs import amr_paper
     from repro_torch.data import SyntheticLM
     from repro_torch.models.tree import tree_items
-    from repro_torch.numerics import AMRNumerics
     from repro_torch.runtime import FaultTolerantLoop
     from repro_torch.train.steps import make_train_state, make_train_step
 
-    cfg = dataclasses.replace(amr_paper.CONFIG, numerics=AMRNumerics("amr_inject", border=BORDER))
-    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch, seed=0)
     step = make_train_step(cfg)
 
     def run(fail: bool):
@@ -1744,9 +2080,11 @@ def phase_train_restart(device) -> None:
     for key, a in tree_items(straight):
         if not torch.equal(a, dict(items)[key]):
             raise AssertionError(f"[restart] leaf {key} differs after the restart")
-    log(f"[restart] amr-paper-100m amr_inject: 4 steps straight ({s1:.1f}s) and 2 + failure + "
-        f"restore + 2 ({s2:.1f}s): losses {l_straight} bit for bit, all {len(items)} leaves of "
-        f"the final state bit for bit")
+    log(f"[restart] {cfg.name} {label}, {batch} x {seq} tokens a step: 4 steps straight "
+        f"({s1:.1f}s) and 2 + failure + restore + 2 ({s2:.1f}s): losses {l_straight} bit for "
+        f"bit, all {len(items)} leaves of the final state bit for bit")
+    del straight, restarted
+    torch.cuda.empty_cache()
 
 
 def training_kernel_rows(device, int_rate: float) -> list[dict]:
@@ -1854,26 +2192,29 @@ def profile_serve(device, card: str, cfg, params, prompts, gen: int, capacity: i
     share of the run's wall time (which the profiler's own host cost
     lengthens)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import Request, ServeEngine
 
-    eng = ServeEngine(cfg, params, n_slots=SLOTS, capacity=capacity, device=device)
-    for p in prompts[:SLOTS]:
-        eng.submit(Request(prompt=p, max_new_tokens=gen))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def setup():
+        eng = ServeEngine(cfg, params, n_slots=SLOTS, capacity=capacity, device=device)
+        for p in prompts[:SLOTS]:
+            eng.submit(Request(prompt=p, max_new_tokens=gen))
+        torch.cuda.synchronize()
+        return eng
+
+    def body(eng):
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(ev.self_device_time_total, ev.count, ev.key) for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
-    rows.sort(reverse=True)
+        return eng, (time.perf_counter() - t0) * 1e6
+
+    (eng, wall_us), rows = profile_windows(body, f"{cfg.name} serve", setup)
     busy_us = sum(r[0] for r in rows)
-    if busy_us <= 0:
-        raise AssertionError("the profiler recorded no device time")
+    if not rows:
+        log(f"[profile] {cfg.name} {cfg.numerics} on {card}: {SLOTS} prefills + "
+            f"{eng.steps_done} decode steps, {wall_us / 1e3:.2f} ms wall, device busy and "
+            f"idle share not measured (no window recorded device time)")
+        return
     ours = sum(r[0] for r in rows
                if "amr_" in r[2] or "inject_replay" in r[2] or "ssd_scan" in r[2])
     log(f"[profile] {cfg.name} {cfg.numerics} on {card}: {SLOTS} prefills + "
@@ -1925,30 +2266,41 @@ def main(argv: list[str] | None = None) -> int:
     device = torch.device("cuda")
     t_start = time.perf_counter()
 
-    from repro_torch.configs import gemma3_1b, gemma_2b, mamba2_370m
+    from repro_torch.configs import gemma3_1b, gemma_2b, mamba2_370m, zamba2_1p2b
 
     phase_build()
     card = card_line()
-    rows = phase_kernels(device, gemma_2b.CONFIG, mamba2_370m.CONFIG, gemma3_1b.CONFIG)
+    t0 = time.perf_counter()
+    rows = phase_kernels(device, gemma_2b.CONFIG, mamba2_370m.CONFIG, gemma3_1b.CONFIG,
+                         zamba2_1p2b.CONFIG)
+    log(f"[kernel] phase {time.perf_counter() - t0:.1f}s")
     if args.parent is not None:
         t0 = time.perf_counter()
         phase_ab(args.parent.resolve())
         log(f"[ab] phase {time.perf_counter() - t0:.1f}s")
     else:
         log("[ab] no --parent tree: the same-call A/B against the parent's kernels is not run")
+    t0 = time.perf_counter()
     phase_reference(device)
+    log(f"[reference] phase {time.perf_counter() - t0:.1f}s")
     gemma_params = model_params(device, gemma_2b.CONFIG)
     t0 = time.perf_counter()
     rows["attn_fused"], attn_launches = phase_attn_fused(
         device, attn_cases(device, gemma_2b.CONFIG, gemma_params), int_ops_per_s(device))
     log(f"[attn_fused] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     launches = phase_serve(device, card, gemma_2b.CONFIG, gemma_params, mamba2_370m.CONFIG)
+    log(f"[serve] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     launches["gemma3-1b"] = phase_gemma3(device, card, gemma3_1b.CONFIG)
     log(f"[gemma3-1b] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    launches["zamba2-1.2b"] = phase_zamba2(device, card, zamba2_1p2b.CONFIG)
+    log(f"[zamba2-1.2b] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     phase_train_parity(device)
-    train = phase_train_full(device, card)
+    phase_train_parity_ssm(device)
+    train, launches["train"] = phase_train_full(device, card)
     phase_train_restart(device)
     log(f"[train] phase {time.perf_counter() - t0:.1f}s")
 
@@ -1972,11 +2324,21 @@ def main(argv: list[str] | None = None) -> int:
                           ("gemma-2b", "amr_inject")),
         "ssd_scan": (rows["ssd"][1], "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:25", ("mamba2-370m", "rank 0")),
+        # the backward at mamba2-370m's training shape in split mode (rank 0's
+        # path); launches from that training run
+        "ssd_scan_bwd": (next(r for r in rows["ssd_bwd"]
+                              if r["shape"][:2] == (MAMBA_TRAIN_BATCH, SSD_CONTEXT)
+                              and r["inputs"] == "model dt" and r["mode"] == "split"),
+                         "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
+                         "none: no Pallas kernel; the JAX package differentiates its jnp scan "
+                         "(src/repro/models/ssm.py:76) with jax.grad",
+                         ("train", "mamba2-370m rank 0")),
     }
     # the fused attention kernels: the op at the long-decode case, border 8;
     # launches from that op call, and their launches in every served run of
     # phase 5 (0: no model dispatches the op)
-    served = {name: sum(c[name] for runs in launches.values() for c in runs.values())
+    served = {name: sum(c[name] for model, runs in launches.items() if model != "train"
+                        for c in runs.values())
               for name in ("attn_fused_lut", "attn_fused_inject")}
     launches["attn_fused"] = attn_launches
     asrc = "src/repro_torch/kernels/attn_fused/csrc/"
@@ -1996,6 +2358,8 @@ def main(argv: list[str] | None = None) -> int:
                  "shape": row["shape"],
                  "launches_gemma3_1b": {label: counts[k.name]
                                         for label, counts in launches["gemma3-1b"].items()},
+                 "launches_zamba2_1p2b": {label: counts[k.name]
+                                          for label, counts in launches["zamba2-1.2b"].items()},
                  "launches_per_train_step": {label: per_step.get(k.name, 0)
                                              for label, per_step in train.items()}}
         if model == "attn_fused":

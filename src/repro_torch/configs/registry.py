@@ -10,6 +10,7 @@ _MODULES = {
     "gemma-2b": "gemma_2b",
     "gemma3-1b": "gemma3_1b",
     "mamba2-370m": "mamba2_370m",
+    "zamba2-1.2b": "zamba2_1p2b",
 }
 
 ARCH_NAMES = list(_MODULES)

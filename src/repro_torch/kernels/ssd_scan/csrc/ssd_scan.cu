@@ -13,6 +13,8 @@
 // split: y without the readout, the state before every chunk (h_prev) and
 // the final state; the caller then reads the state out through the AMR
 // numerics seam (site ssm.scan), as the JAX package's ssd_chunked does.
+// Full mode with keep_states also writes h_prev: the backward
+// (ssd_scan_bwd.cu) reads the state before each chunk from it.
 //
 // Layout: x (B, S, H, P), dt (B, S, H) float32, a_log (H,) float32, b and c
 // grouped (B, S, G, N) with head h reading group h / (H / G) (no
@@ -41,8 +43,8 @@
 //   3. joins the state across chunks: it waits until the block of the chunk
 //      before has published h_c, publishes h_{c+1} = exp(cum_Q) h_c +
 //      contribution, and keeps h_c for the readout.  The states go through
-//      h_prev (split) or h_final (full: one slot a head, read before it is
-//      overwritten by the same thread);
+//      h_prev (split, keep_states) or h_final (full: one slot a head, read
+//      before it is overwritten by the same thread);
 //   4. computes y one 64-row tile t at a time: per 64-column tile s <= t the
 //      masked, decayed C B^T tile (the mask before exp, so no overflow can
 //      leak) into shared memory, then its product with x dt; in full mode
@@ -229,6 +231,7 @@ struct Params {
   float* h_final;
   int* counters;  // [0] the ticket, [1 + (b H + h) ps_n + ps] the chains
   int B, S, H, P, G, N, Q, p_block, split;
+  int keep;       // the states go through h_prev: split mode, or full mode keeping them
 };
 
 // The staged tiles a block takes, in order: its B tiles for the state
@@ -389,9 +392,9 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const Params p) {
   // ---- 3. the state across chunks: wait for h_c, publish h_{c+1}
   int* chain = p.counters + 1 + (bi * p.H + hd) * ps_n + ps;
   const size_t head_state = size_t(N) * p.P;
-  float* h_in = p.split ? p.h_prev + ((size_t(bi) * nc + ci) * p.H + hd) * head_state
+  float* h_in = p.keep ? p.h_prev + ((size_t(bi) * nc + ci) * p.H + hd) * head_state
                         : p.h_final + (size_t(bi) * p.H + hd) * head_state;
-  float* h_out = (p.split && ci + 1 < nc)
+  float* h_out = (p.keep && ci + 1 < nc)
                      ? p.h_prev + ((size_t(bi) * nc + ci + 1) * p.H + hd) * head_state
                      : p.h_final + (size_t(bi) * p.H + hd) * head_state;
   if (tid == 0 && ci > 0) {
@@ -409,7 +412,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_kernel(const Params p) {
       const size_t at = size_t(n0 + i) * p.P + p0 + cp * 4;
       float4 hc = make_float4(0.f, 0.f, 0.f, 0.f);
       if (ci > 0) hc = __ldcg(reinterpret_cast<const float4*>(h_in + at));
-      if (p.split && ci == 0) *reinterpret_cast<float4*>(h_in + at) = hc;  // h_0 = 0
+      if (p.keep && ci == 0) *reinterpret_cast<float4*>(h_in + at) = hc;  // h_0 = 0
       if (!p.split) *reinterpret_cast<float4*>(s_h + (n0 + i) * PB + cp * 4) = hc;
       const float hcv[4] = {hc.x, hc.y, hc.z, hc.w};
       float hn[4];
@@ -536,14 +539,15 @@ long long ssd_scan_smem_bytes(int N, int Q, int p_block) {
 
 // x (B, S, H, P), b / c (B, S, G, N): float32 (in_bf16 = 0) or bf16 (1);
 // dt (B, S, H), a_log (H,) float32; y (B, S, H, P); h_prev (B, nc, H, N, P)
-// when split, else unused; h_final (B, H, N, P); counters: 1 + B H (P /
+// when split or keep_states, else unused; h_final (B, H, N, P); counters: 1 + B H (P /
 // p_block) int32 zeros, left zero.  p_block (16, 32 or 64) divides P and
 // N p_block <= 8192; N % 4 == 0, N <= 128; H % G == 0.  b and c are read
 // two elements a load and every output four: b, c and the outputs are
 // 16-byte aligned.  Returns a cudaError_t (0 on success).
 int ssd_scan(const void* x, const float* dt, const float* a_log, const void* b, const void* c,
              int in_bf16, float* y, float* h_prev, float* h_final, int* counters, int B, int S,
-             int H, int P, int G, int N, int Q, int p_block, int split, void* stream) {
+             int H, int P, int G, int N, int Q, int p_block, int split, int keep_states,
+             void* stream) {
   if (B < 1 || S < 1 || H < 1 || G < 1 || H % G || N < 4 || N % 4 || N > kMaxN || Q < 1 ||
       (p_block != 16 && p_block != 32 && p_block != 64) || P % p_block ||
       N * p_block > kMaxStateTile || counters == nullptr ||
@@ -552,7 +556,7 @@ int ssd_scan(const void* x, const float* dt, const float* a_log, const void* b, 
   const long long blocks = (long long)((S + Q - 1) / Q) * B * H * (P / p_block);
   if (blocks > 2147483647LL) return int(cudaErrorInvalidConfiguration);
   const Params p{x, dt, a_log, b, c, y, h_prev, h_final, counters, B, S, H, P, G, N, Q,
-                 p_block, split};
+                 p_block, split, int(split || keep_states)};
   auto s = static_cast<cudaStream_t>(stream);
   return in_bf16 ? launch<__nv_bfloat16>(p, int(blocks), s) : launch<float>(p, int(blocks), s);
 }

@@ -1,19 +1,30 @@
-"""Wrapper of the hand-written SSD chunked-scan kernel (``csrc/ssd_scan.cu``).
+"""Wrappers of the hand-written SSD chunked-scan kernels (``csrc/ssd_scan.cu``
+and its backward, ``csrc/ssd_scan_bwd.cu``).
 
 ``ssd_scan`` replaces the JAX package's Pallas kernel
 ``kernels/ssd_scan/kernel.py::_ssd_kernel``, and also returns what
 ``ssd_chunked(return_state=True)`` hands to decode (the final state) and,
-in split mode, the state before each chunk.
+in split mode, the state before each chunk.  Where autograd records (grad
+enabled and an input that requires it), a CUDA call runs inside
+``_SsdScan``, a ``torch.autograd.Function`` whose backward is the
+hand-written backward kernel (``ssd_scan_bwd``, which the JAX package has
+no Pallas counterpart of: it differentiates its jnp scan); the forward
+then keeps the state before each chunk in full mode too (``keep_states``:
+(B, nc, H, N, P) float32, 33.5 MB a layer for mamba2-370m at 4 x 2048
+tokens), which the backward reads instead of recomputing the scan.
 
 A tensor's device decides the route: CPU tensors go to the plain version
-(``ref.ssd_ref``); CUDA tensors go to the kernel, which raises on what it
-does not take.  The wrapper makes x, b and c contiguous (on the model's path
-they already are: reshapes of the contiguous conv outputs) and b and c
-16-byte aligned (copying a view that is not), allocates the
-float32 outputs, launches on PyTorch's current stream and counts the launch
-on ``SSD``.  The kernel runs one block per (chunk, batch, head, slice of P)
-(``ssd_launch_plan``) and joins the state across chunks inside the launch,
-through per-stream counters that it leaves zero: one call is one launch.
+(``ref.ssd_ref``, which autograd differentiates: the plain backward);
+CUDA tensors go to the kernels, which raise on what they do not take.  The
+wrapper makes x, b and c contiguous (on the model's path they already are:
+reshapes of the contiguous conv outputs) and b and c 16-byte aligned
+(copying a view that is not), allocates the float32 outputs, launches on
+PyTorch's current stream and counts the launch on ``SSD`` (the backward
+on ``SSD_BWD``).  The kernel runs one block per (chunk, batch, head, slice
+of P) (``ssd_launch_plan``) and joins the state across chunks inside the
+launch, through per-stream counters that it leaves zero: one call is one
+launch.  The backward runs one block per (chunk, batch, head), last chunk
+first, and joins the state gradient across chunks the same way.
 """
 from __future__ import annotations
 
@@ -24,25 +35,31 @@ from pathlib import Path
 from typing import NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..amr_matmul.kernel import _sm_count, _zeros, fills_the_card
 from ..build import CudaKernel, CudaLibrary
-from .ref import ssd_ref
+from .ref import ssd_ref, ssd_ref_grads
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARY = CudaLibrary(_CSRC / "ssd_scan.cu")
-LIBRARIES = (LIBRARY,)
+LIBRARY_BWD = CudaLibrary(_CSRC / "ssd_scan_bwd.cu")
+LIBRARIES = (LIBRARY, LIBRARY_BWD)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SSD = CudaKernel("ssd_scan", LIBRARY, "ssd_scan",
-                 [_P] * 5 + [_I] + [_P] * 4 + [_I] * 9 + [_P])
-KERNELS = (SSD,)
+                 [_P] * 5 + [_I] + [_P] * 4 + [_I] * 10 + [_P])
+SSD_BWD = CudaKernel("ssd_scan_bwd", LIBRARY_BWD, "ssd_scan_bwd",
+                     [_P] * 5 + [_I] + [_P] * 11 + [_I] * 8 + [_P])
+KERNELS = (SSD, SSD_BWD)
 
 THREADS = 256                # kThreads in ssd_scan.cu
 TILE = 64                    # kTile: rows of a staged B or C tile
 MAX_N = 128                  # kMaxN: the d_state the kernel takes
 MAX_STATE_TILE = 8192        # kMaxStateTile: N x p_block at most
 P_BLOCKS = (64, 32, 16)      # columns of P a block, widest first
+BWD_MAX_P = 64               # kMaxP in ssd_scan_bwd.cu: the head_dim the backward takes
+BWD_PART_COLS = MAX_N // 4   # kPartCols: per-row partials of a block
 
 
 class SsdPlan(NamedTuple):
@@ -63,6 +80,16 @@ def ssd_smem_bytes(N: int, chunk: int, p_block: int) -> int:
     three per-row arrays."""
     rows = math.ceil(chunk / TILE) * TILE
     return 4 * (2 * TILE * (N + 4) + TILE * (TILE + 4) + rows * p_block + N * p_block + 3 * rows)
+
+
+def ssd_bwd_smem_bytes(N: int, P: int, chunk: int) -> int:
+    """A backward block's dynamic shared memory (``smem_floats`` in
+    ssd_scan_bwd.cu): the C and B tiles, the dy and x dt tiles, three 64 x
+    64 tiles, h_c or D, five per-row arrays, the per-row partials and one
+    float a thread."""
+    rows = math.ceil(chunk / TILE) * TILE
+    return 4 * (2 * TILE * (N + 1) + 2 * TILE * (P + 1) + 3 * TILE * (TILE + 1)
+                + N * (P + 1) + 5 * rows + TILE * BWD_PART_COLS + THREADS)
 
 
 @lru_cache(maxsize=256)
@@ -104,28 +131,47 @@ def _check_shapes(x, dt, a_log, b, c) -> None:
                          f"a_log {tuple(a_log.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)}")
 
 
+def _check_cuda(x, dt, a_log, b, c) -> None:
+    if x.dtype not in (torch.float32, torch.bfloat16) or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise TypeError(f"x, b and c must share float32 or bfloat16, got {x.dtype}, {b.dtype}, "
+                        f"{c.dtype}")
+    if dt.dtype != torch.float32 or a_log.dtype != torch.float32:
+        raise TypeError(f"dt and a_log must be float32, got {dt.dtype}, {a_log.dtype}")
+
+
+def _device(*ts) -> torch.device:
+    devices = {t.device for t in ts}
+    if len(devices) != 1:
+        raise ValueError(f"operands on different devices: {sorted(map(str, devices))}")
+    dev = next(iter(devices))
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_scan takes CPU or CUDA tensors, got {dev}")
+    return dev
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor, chunk: int, *, split: bool = False) -> tuple:
     """x (B, S, H, P), dt (B, S, H), a_log (H,), b/c (B, S, G, N) grouped.
 
     Returns ``(y, h_final)``, or with ``split=True`` ``(y_intra, h_prev,
     h_final)``, as ``ref.ssd_ref`` does; all float32.  S need not be a
-    multiple of ``chunk``.
+    multiple of ``chunk``.  Differentiable on both routes: gradients of
+    every output reach x, dt, a_log, b and c.
     """
     _check_shapes(x, dt, a_log, b, c)
-    devices = {t.device for t in (x, dt, a_log, b, c)}
-    if len(devices) != 1:
-        raise ValueError(f"operands on different devices: {sorted(map(str, devices))}")
-    dev = x.device
-    if dev.type == "cpu":
+    if _device(x, dt, a_log, b, c).type == "cpu":
         return ssd_ref(x, dt, a_log, b, c, chunk, split=split)
-    if dev.type != "cuda":
-        raise ValueError(f"ssd_scan takes CPU or CUDA tensors, got {dev}")
-    if x.dtype not in (torch.float32, torch.bfloat16) or b.dtype != x.dtype or c.dtype != x.dtype:
-        raise TypeError(f"x, b and c must share float32 or bfloat16, got {x.dtype}, {b.dtype}, "
-                        f"{c.dtype}")
-    if dt.dtype != torch.float32 or a_log.dtype != torch.float32:
-        raise TypeError(f"dt and a_log must be float32, got {dt.dtype}, {a_log.dtype}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a_log, b, c)):
+        return _SsdScan.apply(x, dt, a_log, b, c, chunk, split)
+    y, h_prev, h_final = _scan_cuda(x, dt, a_log, b, c, chunk, split, keep_states=False)
+    return (y, h_prev, h_final) if split else (y, h_final)
+
+
+def _scan_cuda(x, dt, a_log, b, c, chunk: int, split: bool, keep_states: bool) -> tuple:
+    """One launch of the forward kernel -> (y, h_prev, h_final); h_prev is a
+    placeholder unless ``split`` or ``keep_states``."""
+    _check_cuda(x, dt, a_log, b, c)
+    dev = x.device
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     if P % 16:
@@ -142,10 +188,90 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Te
     stream = torch.cuda.current_stream(dev).cuda_stream
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=dev)
     h_final = torch.empty((B, H, N, P), dtype=torch.float32, device=dev)
-    h_prev = torch.empty((B, plan.chunks, H, N, P) if split else (1,), dtype=torch.float32,
-                         device=dev)
+    h_prev = torch.empty((B, plan.chunks, H, N, P) if split or keep_states else (1,),
+                         dtype=torch.float32, device=dev)
     counters = _zeros(dev, stream, 1 + B * H * plan.p_split, "ssd")
     SSD(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(), c.data_ptr(),
         int(x.dtype == torch.bfloat16), y.data_ptr(), h_prev.data_ptr(), h_final.data_ptr(),
-        counters, B, S, H, P, G, N, chunk, plan.p_block, int(split), stream)
-    return (y, h_prev, h_final) if split else (y, h_final)
+        counters, B, S, H, P, G, N, chunk, plan.p_block, int(split), int(keep_states), stream)
+    return y, h_prev, h_final
+
+
+class _SsdScan(torch.autograd.Function):
+    """The CUDA scan under autograd: the forward kernel keeping the state
+    before each chunk, and the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b, c, chunk, split):
+        y, h_prev, h_final = _scan_cuda(x, dt, a_log, b, c, chunk, split, keep_states=True)
+        ctx.chunk, ctx.split = chunk, split
+        ctx.save_for_backward(x, dt, a_log, b, c, h_prev)
+        return (y, h_prev, h_final) if split else (y, h_final)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        x, dt, a_log, b, c, h_prev = ctx.saved_tensors
+        dy, dh_prev, dh_final = grads if ctx.split else (grads[0], None, grads[1])
+        return (*ssd_scan_bwd(x, dt, a_log, b, c, h_prev, dy, dh_prev, dh_final, ctx.chunk),
+                None, None)
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor, h_prev: torch.Tensor, dy: torch.Tensor,
+                 dh_prev: torch.Tensor | None, dh_final: torch.Tensor, chunk: int) -> tuple:
+    """The gradients (dx, ddt, da_log, db, dc) of ``ssd_scan``'s outputs,
+    given their gradients: dy (B, S, H, P), in split mode dh_prev (B, nc, H,
+    N, P) (None in full mode), dh_final (B, H, N, P); ``h_prev`` is the
+    forward's state before each chunk.  Each gradient in its input's dtype;
+    db and dc summed over the heads of a group in float32 (the kernel's
+    per-head sums, added in head order) before the cast.  da_log is the sum
+    of the kernel's per-(chunk, batch) partials.  CPU tensors take the plain
+    backward (``ref.ssd_ref_grads``, which recomputes the forward)."""
+    _check_shapes(x, dt, a_log, b, c)
+    split = dh_prev is not None
+    dev = _device(x, dt, a_log, b, c, h_prev, dy, dh_final)
+    if dev.type == "cpu":
+        grads = (dy, dh_prev, dh_final) if split else (dy, dh_final)
+        return ssd_ref_grads(x, dt, a_log, b, c, chunk, grads, split=split)
+    _check_cuda(x, dt, a_log, b, c)
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    nc = math.ceil(S / chunk)
+    if P % 4 or P > BWD_MAX_P or N % 4 or N > MAX_N:
+        raise ValueError(f"the SSD backward kernel takes head_dim P % 4 == 0, P <= {BWD_MAX_P} "
+                         f"and d_state N % 4 == 0, N <= {MAX_N}; got P={P}, N={N}")
+    smem = ssd_bwd_smem_bytes(N, P, chunk)
+    if smem > _max_smem(dev):
+        raise ValueError(f"the SSD backward kernel needs {smem} bytes of shared memory for "
+                         f"d_state {N}, head_dim {P} and chunk {chunk}; the card allows "
+                         f"{_max_smem(dev)}")
+    states = (B, nc, H, N, P)
+    if tuple(h_prev.shape) != states or tuple(dy.shape) != (B, S, H, P) or \
+            tuple(dh_final.shape) != (B, H, N, P) or (split and tuple(dh_prev.shape) != states):
+        raise ValueError(f"ssd_scan_bwd: h_prev {tuple(h_prev.shape)}, dy {tuple(dy.shape)}, "
+                         f"dh_final {tuple(dh_final.shape)} do not fit x {tuple(x.shape)}, "
+                         f"b {tuple(b.shape)} and chunk {chunk}")
+    for name, t in (("h_prev", h_prev), ("dy", dy), ("dh_final", dh_final), ("dh_prev", dh_prev)):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    x, dt, a_log, b, c, h_prev, dy, dh_final = (
+        t.contiguous() for t in (x, dt, a_log, b, c, h_prev, dy, dh_final))
+    dh_prev = dh_prev.contiguous() if split else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((B, S, H), **f32)
+    da_part = torch.empty((nc, B, H), **f32)
+    dbh = torch.empty((B, S, H, N), **f32)
+    dch = torch.empty((B, S, H, N), **f32)
+    dstates = torch.empty(states, **f32)
+    counters = _zeros(dev, stream, 1 + B * H, "ssd_bwd")
+    SSD_BWD(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(), c.data_ptr(),
+            int(x.dtype == torch.bfloat16), dy.data_ptr(), dh_prev.data_ptr() if split else None,
+            dh_final.data_ptr(), h_prev.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            da_part.data_ptr(), dbh.data_ptr(), dch.data_ptr(), dstates.data_ptr(), counters,
+            B, S, H, P, G, N, chunk, int(split), stream)
+    rep = H // G
+    db, dc = (t.view(B, S, G, rep, N).sum(dim=3).to(b.dtype) for t in (dbh, dch))
+    return dx, ddt, da_part.sum(dim=(0, 1)), db, dc

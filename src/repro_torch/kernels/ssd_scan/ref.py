@@ -5,7 +5,8 @@ The port of the JAX package's ``models/ssm.py::ssd_chunked`` (which its
 multiple with ``dt = 0``, the intra-chunk dual quadratic form masked before
 ``exp``, the chunk states, and the inter-chunk recurrence as a loop over
 chunks.  The kernel wrapper (``kernel.py``) runs it for CPU tensors, and
-``chip_smoke.py`` holds the CUDA kernel against it on the card.
+``chip_smoke.py`` holds the CUDA kernel against it on the card; autograd
+through it (``ssd_ref_grads``) is the plain backward, likewise.
 """
 from __future__ import annotations
 
@@ -25,14 +26,17 @@ def chunk_cumsum(dt: torch.Tensor, a_log: torch.Tensor, chunk: int) -> torch.Ten
 
 
 def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
-            c: torch.Tensor, chunk: int, *, split: bool = False) -> tuple:
+            c: torch.Tensor, chunk: int, *, split: bool = False, join: bool = True) -> tuple:
     """x (B, S, H, P), dt (B, S, H), a_log (H,), b/c (B, S, G, N) grouped.
 
     ``split=False`` returns (y (B, S, H, P), h_final (B, H, N, P)), y with
     the inter-chunk readout ``exp(cum) * (C @ h_prev)``; ``split=True``
     returns (y_intra, h_prev (B, nc, H, N, P), h_final): y without that
     readout, and the state before each chunk, for the caller to read out
-    through the numerics seam.  Everything is float32.
+    through the numerics seam.  Everything is float32.  ``join=False``
+    computes the same values but cuts the gradient that the state update
+    ``h_{c+1} = exp(cum_Q) h_c + S_c`` carries back into h_c (the backward's
+    reverse join): only ``ssd_carried_grads`` asks for that.
     """
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
@@ -65,13 +69,31 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Ten
     prev = []
     for i in range(nc):
         prev.append(h)
-        h = chunk_decay[:, i, :, None, None] * h + states[:, i]
+        h = chunk_decay[:, i, :, None, None] * (h if join else h.detach()) + states[:, i]
     h_prev = torch.stack(prev, dim=1)                           # (B, nc, H, N, P)
 
     if not split:
         y = y + torch.einsum("bnthi,bnhip->bnthp", ch * torch.exp(cum)[..., None], h_prev)
     y = y.reshape(B, nc * chunk, H, P)[:, :S]
     return (y, h_prev, h) if split else (y, h)
+
+
+def ssd_ref_grads(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
+                  c: torch.Tensor, chunk: int, grads: tuple, *, split: bool = False,
+                  join: bool = True) -> tuple:
+    """The plain backward: (dx, ddt, da_log, db, dc) by torch autograd
+    through ``ssd_ref``, given the gradients of its outputs (``grads``, in
+    its output order), each in its input's dtype (db and dc summed over the
+    heads of a group in float32 before the cast, as ``repeat_interleave``'s
+    backward sums them).  ``join`` as in ``ssd_ref``."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, dt, a_log, b, c)]
+        # the state before the first chunk is a constant 0: no gradient flows from it
+        pairs = [(o, g) for o, g in zip(ssd_ref(*ins, chunk, split=split, join=join), grads)
+                 if o.requires_grad]
+        got = torch.autograd.grad([o for o, _ in pairs], ins, [g for _, g in pairs],
+                                  allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g for t, g in zip(ins, got))
 
 
 def ssd_error_bound(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
@@ -128,3 +150,45 @@ def ssd_carried(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch
         return torch.zeros_like(y_intra), before, carried[:, -1]
     y, _ = ssd_ref(x, dt, a_log, b, c, chunk)
     return y - y_intra, carried[:, -1]
+
+
+def ssd_carried_grads(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
+                      c: torch.Tensor, chunk: int, grads: tuple, *, split: bool = False) -> tuple:
+    """The part of each gradient of ``ssd_ref_grads`` that the reverse join
+    carries back across chunk boundaries (the state gradient of a later
+    chunk, decayed into an earlier one): the full gradient less the one with
+    the join cut.  A backward kernel that dropped or mis-scaled the join
+    would be off by about this much, so a check sees the join only where it
+    exceeds the check's tolerance (dc has none: C reads the forward's state,
+    not the state gradient)."""
+    full = ssd_ref_grads(x, dt, a_log, b, c, chunk, grads, split=split)
+    cut = ssd_ref_grads(x, dt, a_log, b, c, chunk, grads, split=split, join=False)
+    return tuple(f.float() - k.float() for f, k in zip(full, cut))
+
+
+GRAD_RTOL = 1e-4  # of each gradient's largest |value|: float32 sums in other orders
+
+
+def ssd_grad_rtol(dt: torch.Tensor, a_log: torch.Tensor, chunk: int) -> float:
+    """The relative tolerance of a backward's gradients against the plain
+    ones: GRAD_RTOL plus 2**-23 * 16 * (1 + max |cum|), the relative error
+    of a decay factor exp(cum_t - cum_s) when the two sides round the
+    cumulative log decay in other orders (about 8 ulps of max |cum| each,
+    as in ``ssd_error_bound``).  With the model's dt, |cum| reaches about
+    3300 within a chunk and this term 6e-3; where a chunk decays the state
+    by exp(-0.5) it is 2e-6."""
+    cum_max = float(chunk_cumsum(dt, a_log, chunk).abs().max())
+    return GRAD_RTOL + 2.0 ** -23 * 16 * (1 + cum_max)
+
+
+def ssd_grad_excess(got: torch.Tensor, want: torch.Tensor, rtol: float = GRAD_RTOL) -> float:
+    """How far a backward's gradient is from the plain one, over its
+    tolerance: max |got - want| / (rtol max |want| + step), where step is
+    one bf16 rounding step of |want| (2**-7 |want|) for a bf16 gradient
+    (either side may round a value near a tie the other way) and 0 for a
+    float32 one.  At most 1 passes."""
+    bf16 = got.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    step = 2.0 ** -7 * want.abs() if bf16 else 0.0
+    tol = rtol * float(want.abs().max()) + step + 1e-30
+    return float(((got - want).abs() / tol).max())

@@ -1,7 +1,7 @@
 """Models of the port: layers, attention with a per-slot KV cache, the
-Mamba2 SSM mixer, and the model entry points."""
+Mamba2 SSM mixer, the shared attention block, and the model entry points."""
 from .model import decode_step, forward, group_structure, init_cache, init_params, \
-    prefill_with_cache
+    prefill_with_cache, unread_params
 
 __all__ = ["forward", "decode_step", "init_params", "init_cache", "group_structure",
-           "prefill_with_cache"]
+           "prefill_with_cache", "unread_params"]

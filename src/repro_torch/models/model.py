@@ -1,22 +1,30 @@
-"""LM assembly for the dense and SSM families: init, forward, prefill and decode.
+"""LM assembly for the dense, SSM and hybrid families: init, forward, prefill
+and decode.
 
-The port of the dense and Mamba2 parts of the JAX package's
-``models/model.py``.  The parameter tree keeps the JAX layout, so that both
-packages can compute on the same weights (``convert.params_from_numpy``):
+The port of the dense, Mamba2 and shared-attention parts of the JAX
+package's ``models/model.py``.  The parameter tree keeps the JAX layout, so
+that both packages can compute on the same weights
+(``convert.params_from_numpy``):
 
   {"embed": (V, D), "final_norm": (D,),
    "layers": ({"ln1", "ln2", "attn": {...}, "mlp": {...}},)}   # "full", "swa" layers
    "layers": ({"ln1", "ln2", "ssm": {...}},)                    # "ssm" layers
+   "layers": ({"ln1", "ln2", "mlp": {...}},)                    # "shared_attn" layers
+   "shared": {"attn": {...}, "ln1", "ln2", "mlp": {...}}}      # with "shared_attn" layers
 
 A "swa" layer is a "full" one that attends within ``cfg.sliding_window``
-tokens; its decode cache is a ring of min(capacity, window) slots.
+tokens; its decode cache is a ring of min(capacity, window) slots.  A
+"shared_attn" layer (zamba2's) applies the one model-level ``shared``
+attention + MLP block, a full-attention layer with its own KV cache at
+each application; its per-layer entry is kept, unread, as in the JAX
+package (``unread_params``).
 
 ``layers`` holds one dict per layer kind of a group, its leaves stacked
 over the group's ``n_repeat`` copies.  Where the JAX package scans over the
 stacked copies, this module loops in Python.  Decode caches mirror the same
 grouping: one ``KVCache`` (attention) or ``SSMState`` (conv rings and
 state, no position) per kind, leaves stacked over ``n_repeat``.  A Mamba2
-block has no MLP: its ``ln2`` is kept, unused, as in the JAX package.
+block has no MLP: its ``ln2`` is kept, unread, as in the JAX package.
 
 Every matmul of every layer runs under ``cfg.numerics``, an
 ``AMRNumerics`` or a site- and layer-resolved policy; the LM head stays
@@ -45,9 +53,12 @@ from repro_torch.numerics import current_scope, numerics_scope
 from . import attention as attn
 from . import ssm as ssm_lib
 from .layers import embed, mlp, rms_norm, unembed
-from .tree import tree_map
+from .tree import tree_items, tree_map
 
-_KINDS = ("full", "swa", "ssm")
+_KINDS = ("full", "swa", "ssm", "shared_attn")
+# per-layer leaves no computation reads, by kind: a Mamba2 block has no MLP,
+# and a shared-attention layer runs the model-level "shared" block
+_UNREAD = {"ssm": ("ln2",), "shared_attn": ("ln1", "ln2", "mlp")}
 
 
 def group_structure(cfg: ModelConfig) -> tuple[tuple[str, ...], int]:
@@ -79,37 +90,59 @@ def param_specs(cfg: ModelConfig) -> dict:
     def stacked(*shape):
         return (n_repeat, *shape)
 
-    def layer(kind: str) -> dict:
-        norms = {"ln1": (stacked(D), f32, None), "ln2": (stacked(D), f32, None)}
-        if kind == "ssm":
-            return {**norms, "ssm": ssm_lib.ssm_param_specs(D, cfg.ssm, dt, stacked)}
+    def single(*shape):
+        return shape
+
+    def attn_block(shape) -> dict:
         a = {
-            "wq": (stacked(D, HD), dt, D ** -0.5),
-            "wk": (stacked(D, KD), dt, D ** -0.5),
-            "wv": (stacked(D, KD), dt, D ** -0.5),
-            "wo": (stacked(HD, D), dt, HD ** -0.5),
+            "wq": (shape(D, HD), dt, D ** -0.5),
+            "wk": (shape(D, KD), dt, D ** -0.5),
+            "wv": (shape(D, KD), dt, D ** -0.5),
+            "wo": (shape(HD, D), dt, HD ** -0.5),
         }
         if cfg.qk_norm:
-            a["q_norm"] = (stacked(cfg.head_dim), f32, None)
-            a["k_norm"] = (stacked(cfg.head_dim), f32, None)
+            a["q_norm"] = (shape(cfg.head_dim), f32, None)
+            a["k_norm"] = (shape(cfg.head_dim), f32, None)
+        return a
+
+    def mlp_block(shape) -> dict:
         return {
-            **norms,
-            "attn": a,
-            "mlp": {
-                "w_gate": (stacked(D, F_), dt, D ** -0.5),
-                "w_up": (stacked(D, F_), dt, D ** -0.5),
-                "w_down": (stacked(F_, D), dt, F_ ** -0.5),
-            },
+            "w_gate": (shape(D, F_), dt, D ** -0.5),
+            "w_up": (shape(D, F_), dt, D ** -0.5),
+            "w_down": (shape(F_, D), dt, F_ ** -0.5),
         }
+
+    def norms(shape) -> dict:
+        return {"ln1": (shape(D), f32, None), "ln2": (shape(D), f32, None)}
+
+    def layer(kind: str) -> dict:
+        if kind == "ssm":
+            return {**norms(stacked), "ssm": ssm_lib.ssm_param_specs(D, cfg.ssm, dt, stacked)}
+        if kind == "shared_attn":
+            return {**norms(stacked), "mlp": mlp_block(stacked)}
+        return {**norms(stacked), "attn": attn_block(stacked), "mlp": mlp_block(stacked)}
 
     specs = {
         "embed": ((cfg.vocab, D), dt, D ** -0.5),
         "final_norm": ((D,), f32, None),
         "layers": tuple(layer(k) for k in kinds),
     }
+    if "shared_attn" in kinds:
+        specs["shared"] = {"attn": attn_block(single), **norms(single), "mlp": mlp_block(single)}
     if not cfg.tie_embeddings:
         specs["lm_head"] = ((cfg.vocab, D), dt, D ** -0.5)
     return specs
+
+
+def unread_params(cfg: ModelConfig) -> frozenset[str]:
+    """Paths (``tree_items`` form, ``layers/0/ln2``) of the parameter leaves
+    that no computation reads: each "ssm" layer's ``ln2`` and each
+    "shared_attn" layer's ``ln1``, ``ln2`` and ``mlp``.  ``jax.grad`` gives
+    them zero gradients; the port's train step does the same."""
+    kinds, _ = group_structure(cfg)
+    roots = tuple(f"layers/{i}/{k}" for i, kind in enumerate(kinds) for k in _UNREAD.get(kind, ()))
+    paths = [p for p, _ in tree_items(_map_specs(lambda *_: None, param_specs(cfg)))]
+    return frozenset(p for p in paths if any(p == r or p.startswith(r + "/") for r in roots))
 
 
 def _is_spec(node) -> bool:
@@ -149,6 +182,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device: str | torch.device =
 
 def _layer(params: dict, g: int) -> dict:
     return tree_map(lambda t: t[g], params)
+
+
+def _block_params(params: dict, kind: str, i: int, g: int) -> dict:
+    """The parameters layer (g, i) computes with: the model-level shared
+    block for a "shared_attn" layer, else its own copy."""
+    return params["shared"] if kind == "shared_attn" else _layer(params["layers"][i], g)
 
 
 def _attn_kwargs(cfg: ModelConfig, kind: str) -> dict:
@@ -195,7 +234,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     for g in range(n_repeat):
         for i, kind in enumerate(kinds):
             body = partial(_layer_full, cfg, kind, g * len(kinds) + i, step)
-            lp = _layer(params["layers"][i], g)
+            lp = _block_params(params, kind, i, g)
             if remat:
                 x = checkpoint(body, lp, x, use_reentrant=False, preserve_rng_state=False)
             else:
@@ -271,7 +310,7 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor, cache: tupl
     for g in range(n_repeat):
         new = []
         for i, kind in enumerate(kinds):
-            lp = _layer(params["layers"][i], g)
+            lp = _block_params(params, kind, i, g)
             flat = g * len(kinds) + i
             with numerics_scope(step=pos, layer=flat, static_layer=flat):
                 h = rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -304,7 +343,7 @@ def prefill_with_cache(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     for g in range(n_repeat):
         caches = []
         for i, kind in enumerate(kinds):
-            lp = _layer(params["layers"][i], g)
+            lp = _block_params(params, kind, i, g)
             flat = g * len(kinds) + i
             with numerics_scope(layer=flat, static_layer=flat):
                 h = rms_norm(x, lp["ln1"], cfg.norm_eps)

@@ -125,6 +125,11 @@ def ssd_chunked(x, dt, a_log, b, c, chunk: int, return_state: bool = False,
         y, h_final = ssd_scan(x, dt, a_log, b, c, chunk)
     else:
         B, S, H, P = x.shape
+        if c.requires_grad:
+            # c feeds the scan and the readout panel: widened once, as the JAX
+            # package's ch is, its two gradients meet in float32 before one
+            # cast to c's dtype (x and b follow: the scan takes one dtype)
+            x, b, c = x.float(), b.float(), c.float()
         y_intra, h_prev, h_final = ssd_scan(x, dt, a_log, b, c, chunk, split=True)
         dc = decay_weighted_c(dt, a_log, c, chunk, H)
         y_inter = approx_matmul(dc, h_prev, numerics, site="ssm.scan")

@@ -7,10 +7,13 @@
   * serve_*   — one decode step against a KV or SSM cache.
 
 Under the AMR modes a training step's forward runs the hand kernels and
-its backward the straight-through surrogate (``numerics/approx_matmul.py``).
-A family whose forward has no backward in the port (a layer of kind
-"ssm": the SSD kernel has none) is refused, so that nothing trains with
-missing gradients; every parameter must receive a gradient.
+its backward the straight-through surrogate (``numerics/approx_matmul.py``);
+an SSM layer's scan runs the SSD kernel forward and its backward kernel
+(``kernels/ssd_scan``).  The leaves that no computation reads
+(``models.unread_params``: a Mamba2 block's ``ln2``, a shared-attention
+layer's own ``ln1``, ``ln2`` and ``mlp``) get zero gradients, as
+``jax.grad`` gives them, and AdamW decays them as the JAX package's does;
+every other leaf must receive a gradient.
 """
 from __future__ import annotations
 
@@ -20,14 +23,10 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import decode_step, forward, group_structure, init_params
-from repro_torch.models.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models import decode_step, forward, group_structure, init_params, unread_params
+from repro_torch.models.tree import tree_items, tree_leaves, tree_map, tree_unflatten
 from repro_torch.numerics import numerics_scope
 from repro_torch.optim import AdamWState, adamw_init, adamw_update, cosine_warmup, global_norm
-
-# layer kinds whose forward the port cannot differentiate yet (ROADMAP queue 1)
-_NO_BACKWARD = {"ssm": "the SSD scan kernel has no backward (ROADMAP queue 1, SSM training)"}
-
 
 @dataclasses.dataclass
 class TrainState:
@@ -46,19 +45,15 @@ def make_train_state(cfg: ModelConfig, seed: int = 0, *,
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config with a layer kind the port
-    cannot train yet."""
-    for kind in group_structure(cfg)[0]:
-        if kind in _NO_BACKWARD:
-            raise NotImplementedError(f"{cfg.name} cannot train in repro_torch: {kind!r} "
-                                      f"layers: {_NO_BACKWARD[kind]}")
+    does not run (``group_structure``); every kind it runs it can train."""
+    group_structure(cfg)
 
 
 def loss_fn(cfg: ModelConfig, params, tokens: torch.Tensor, targets: torch.Tensor,
             aux_weight: float = 0.01, step=None, *, with_logits: bool = False):
     """Mean float32 next-token NLL plus ``aux_weight * aux`` -> (loss, aux),
     or (loss, (aux, logits)) with ``with_logits``.  ``step`` enters the
-    numerics scope.  Raises for a family the port cannot differentiate
-    when grad is enabled."""
+    numerics scope.  Raises for a layer kind the port does not run."""
     if torch.is_grad_enabled():
         check_trainable(cfg)
     with numerics_scope(step=step):
@@ -70,12 +65,16 @@ def loss_fn(cfg: ModelConfig, params, tokens: torch.Tensor, targets: torch.Tenso
 
 
 def _grads_of(cfg: ModelConfig, params, tokens, targets, step):
-    """(loss, aux, grads): every parameter must get a gradient."""
+    """(loss, aux, grads): zeros for the leaves no computation reads, and
+    every other parameter must get a gradient."""
+    unread = unread_params(cfg)
     with torch.enable_grad():
         ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
         loss, aux = loss_fn(cfg, ps, tokens, targets, step=step)
-        grads = torch.autograd.grad(loss, tree_leaves(ps))
-    return loss.detach(), aux.detach(), tree_unflatten(params, list(grads))
+        items = tree_items(ps)
+        read = iter(torch.autograd.grad(loss, [p for path, p in items if path not in unread]))
+    grads = [torch.zeros_like(p) if path in unread else next(read) for path, p in items]
+    return loss.detach(), aux.detach(), tree_unflatten(params, grads)
 
 
 def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4, warmup: int = 100,

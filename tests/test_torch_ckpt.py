@@ -35,21 +35,12 @@ from repro_torch.models.tree import tree_items
 from repro_torch.runtime import FaultTolerantLoop
 from repro_torch.train.steps import make_train_state, make_train_step
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
+
 TINY = dict(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
             head_dim=16, d_ff=128, vocab=128, mlp_act="swiglu", tie_embeddings=True,
             remat="none")
 STEPS = 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """The CPU training loops here are many small ops: one intra-op thread
-    keeps them from spinning against the suite's other workers (the checks
-    do not depend on the thread count)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _bits(x) -> tuple[str, tuple, bytes]:

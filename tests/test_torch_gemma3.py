@@ -56,6 +56,8 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.numerics import AMRNumerics as TN
 from repro_torch.serve import Request, ServeEngine
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
+
 MODES = [("exact", 8, 8), ("amr_kernel", 8, 0), ("amr_kernel", 8, 8)]
 _IDS = lambda m: f"{m[0]}-r{m[2]}"  # noqa: E731
 WINDOW = 8

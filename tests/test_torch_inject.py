@@ -42,6 +42,8 @@ from repro_torch.numerics import AMRNumerics as TN
 from repro_torch.numerics import injection as tinjection
 from repro_torch.serve import Request, ServeEngine
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
+
 japprox = importlib.import_module("repro.numerics.approx_matmul")
 tapprox = importlib.import_module("repro_torch.numerics.approx_matmul")
 ULP = 2.0 ** -23

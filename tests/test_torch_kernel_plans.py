@@ -353,6 +353,22 @@ def test_ssd_constants_match_the_source():
     assert int(consts["kMaxStateTile"]) == skernel.MAX_STATE_TILE
 
 
+def test_ssd_bwd_constants_and_shared_memory_match_the_source():
+    """The backward's limits are the source's, and a block's shared memory
+    fits at both models' widths (mamba2-370m: N 128, P 64; zamba2-1.2b: N
+    64, P 64; chunk 256) and at the largest the kernel takes."""
+    text = skernel.LIBRARY_BWD.source.read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = ([^;/]+);", text))
+    assert int(consts["kThreads"]) == skernel.THREADS
+    assert int(consts["kTile"]) == skernel.TILE
+    assert int(consts["kMaxN"]) == skernel.MAX_N
+    assert int(consts["kMaxP"]) == skernel.BWD_MAX_P
+    assert "constexpr int kPartCols = kMaxN / 4;" in text
+    for n, p in ((128, 64), (64, 64), (skernel.MAX_N, skernel.BWD_MAX_P)):
+        assert skernel.ssd_bwd_smem_bytes(n, p, 256) <= SM90_SMEM_PER_BLOCK
+    assert skernel.ssd_bwd_smem_bytes(128, 64, 256) == 196864
+
+
 def _inject_plan(G, M, D, T, P, bm=None, border=8):
     prog = _program(border)
     bm = akernel.default_row_tile(G, M, "inject", T, H100_SMS) if bm is None else bm

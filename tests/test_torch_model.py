@@ -42,6 +42,8 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.numerics import AMRNumerics as TN
 from repro_torch.train.steps import make_prefill_step as tprefill_step
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
+
 MODES = [("exact", 8, 8), ("amr_kernel", 8, 0), ("amr_kernel", 8, 8)]
 CAP = 12
 _COMPILE = {"xla_allow_excess_precision": False}

@@ -32,6 +32,8 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.numerics import AMRNumerics as TN
 from repro_torch.serve import Request, ServeEngine
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 CAP = 24
 PROMPTS = [(5, 9, 2, 7), (3, 11, 4, 1, 8, 6), (13, 2), (9, 7, 9, 1, 2)]

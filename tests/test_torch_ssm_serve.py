@@ -28,6 +28,8 @@ from repro_torch.models.tree import tree_map
 from repro_torch.numerics import AMRNumerics as TN
 from repro_torch.serve import Request, ServeEngine
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
+
 # the four modes of tests/test_torch_serve.py; amr_inject is held to the JAX
 # package op for op in tests/test_torch_ssm.py and on the card by chip_smoke
 MODES = [("exact", 8, 8), ("amr_lut", 8, 8), ("amr_kernel", 8, 0), ("amr_kernel", 8, 8)]

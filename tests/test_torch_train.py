@@ -19,7 +19,8 @@
   accumulation equals the full batch (loss within 1e-6 relative, params
   within 1e-6); ``remat="block"`` gives the gradients of ``"none"`` bit
   for bit; ``SyntheticLM`` and ``MemmapDataset`` batches equal JAX's bit
-  for bit; an SSM config refuses to train; the trainer runs on the CPU.
+  for bit; an SSM config trains and an unported layer kind is refused; the
+  trainer runs on the CPU.
 """
 import dataclasses
 import importlib
@@ -52,6 +53,8 @@ from repro_torch.optim import adamw_init, adamw_update, cosine_warmup
 from repro_torch.train.steps import (loss_fn, make_grads_step, make_train_state,
                                      make_train_step)
 
+from _torch_threads import one_intra_op_thread  # noqa: F401
+
 japprox = importlib.import_module("repro.numerics.approx_matmul")
 tapprox = importlib.import_module("repro_torch.numerics.approx_matmul")
 
@@ -62,17 +65,6 @@ TINY = dict(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4, n_kv
 LOSS_MODES = [("exact", 8, 8), ("amr_kernel", 8, 0), ("amr_lowrank", 6, 8)]
 MATMUL_MODES = [("exact", 8, 8), ("amr_lut", 8, 8), ("amr_kernel", 8, 0), ("amr_kernel", 8, 8),
                 ("amr_lowrank", 8, 4)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """The CPU training loops here are many small ops: one intra-op thread
-    keeps them from spinning against the suite's other workers (the checks
-    do not depend on the thread count)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _batch(data, i, device="cpu"):
@@ -270,14 +262,21 @@ def test_synthetic_and_memmap_batches_equal_jax(tmp_path):
 
 
 def test_ssm_config_refuses_to_train():
-    cfg = mamba2_370m.reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_grads_step(cfg)
+    """The SSD scan has a backward now, so an SSM config trains (one step on
+    the CPU, 20 tokens: a ragged last chunk); only a layer kind the port
+    does not run is still refused, by every training entry point."""
+    cfg = dataclasses.replace(mamba2_370m.reduced(), dtype="float32")
+    b = _batch(TSynthetic(vocab=cfg.vocab, seq_len=20, batch=2, seed=0), 0)
+    state, m = make_train_step(cfg)(make_train_state(cfg, 0, device="cpu"), b)
+    assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+    unported = dataclasses.replace(cfg, default_mixer="cross")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        make_train_step(unported)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        make_grads_step(unported)
     tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loss_fn(cfg, None, tokens, tokens)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        loss_fn(unported, None, tokens, tokens)
 
 
 def test_trainer_runs_on_cpu(capsys, tmp_path):

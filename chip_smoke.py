@@ -50,9 +50,11 @@ Phases (any failure raises, and the run exits non-zero):
    8) at the gemma-2b and mamba2-370m rank-0 paths' shapes, the low-rank
    kernel, the replay kernel (border 8) and the fused attention LUT and
    inject kernels (served decode and prefill, long decode and prefill) at
-   the gemma-2b path's shapes, and the SSD kernel at S = 16, 1024 and 2048
-   in split and full mode at mamba2-370m's widths, parent, change, change,
-   parent,
+   the gemma-2b path's shapes, the SSD kernel at S = 16, 1024 and 2048
+   in split and full mode at mamba2-370m's widths, and its backward at
+   mamba2-370m's training shape (4 x 2048, split and full), one sequence
+   of 1024 and zamba2-1.2b's training shape (2 x 1024), parent, change,
+   change, parent,
    each run a process of its own that builds its tree's kernels: the event
    time (where a call takes less than 0.2 ms, the median of 5 windows of
    200 calls, with the host time beside it: the wrapper's checks, plan and
@@ -180,8 +182,8 @@ the lut kernel 2 operations (a gather, an add) per product of QK^T and of
 PV, the inject kernel ``replay_ops`` for both products; QK^T only where
 the mask keeps the score (per 32-column word for inject), PV over every
 column, since AMR(0, v) is not 0.  The SSD backward counts each product
-it needs once (``ssd_bwd_work``; the kernel computes the masked tiles
-twice).
+it needs once (``ssd_bwd_work``; the kernel also computes the diagonal
+tiles' upper triangles, which the mask zeroes).
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers, and ``{"ok": true, "device": {...}}``.
@@ -787,7 +789,8 @@ def ssd_bwd_kernel_rows(device, mcfg, zcfg) -> list[dict]:
     (``ssd_carried_grads``) must exceed the tolerance a hundredfold, which
     the model's dt (a chunk decays the state to 0) hides.  Each row has the
     backward's event and device ms, the forward's at the same shape (keeping
-    its states, as under autograd), the plain backward's ms and the bound."""
+    its states, as under autograd), the wrapper's head sum of db and dc
+    (``head_sum_ms``, inside ``ms``), the plain backward's ms and the bound."""
     import torch
 
     from repro_torch.kernels.ssd_scan import kernel as skernel
@@ -842,16 +845,20 @@ def ssd_bwd_kernel_rows(device, mcfg, zcfg) -> list[dict]:
             times = call_times(skernel.ssd_scan_bwd, [bwd_args], 20)
             fwd = call_times(lambda *a: skernel._scan_cuda(*a, Q, split, keep_states=True),
                              [args], 20)
+            # the wrapper's sum of the per-head db and dc over each group's heads
+            per_head = torch.randn((B, S, H, N), generator=gen, device=device)
+            head_sum_ms = 2 * time_ms(lambda t: t.view(B, S, G, H // G, N).sum(dim=3).to(
+                args[3].dtype), [(per_head,)], 20)
             out.append(dict(
                 model=cfg.name, shape=(B, S, H, P, N), inputs=inputs,
                 mode="split" if split else "full", max_abs_err=max(
                     float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)),
                 excess=excess, rtol=rtol, carried_over_tol=carried, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, **times, fwd_ms=fwd["ms"],
-                fwd_device_ms=fwd["device_ms"],
+                fwd_device_ms=fwd["device_ms"], head_sum_ms=head_sum_ms,
                 plain_ms=time_ms(lambda *a: sref.ssd_ref_grads(*a, Q, grads, split=split),
                                  [args], 3)))
-            del got, want, h_prev
+            del got, want, h_prev, per_head
     return out
 
 
@@ -888,13 +895,15 @@ def time_kernels() -> dict:
     at the gemma-2b and mamba2-370m rank-0 paths' shapes, of the low-rank
     kernel, the replay kernel (border 8) and the fused attention LUT and
     inject kernels (border 8: served decode and prefill, long decode and
-    prefill) at the gemma-2b path's shapes, and of the SSD scan at mamba2-370m's widths (S
-    = 16, 1024, 2048, split and full), from whichever ``repro_torch`` is
-    first on sys.path: the same calls with the same seeded operands in this
-    tree and in a parent's."""
+    prefill) at the gemma-2b path's shapes, of the SSD scan at mamba2-370m's
+    widths (S = 16, 1024, 2048, split and full) and of its backward
+    (mamba2-370m's 4 x 2048 split and full, 1 x 1024 split; zamba2-1.2b's 2
+    x 1024 split), from whichever ``repro_torch`` is first on sys.path: the
+    same calls with the same seeded operands in this tree and in a
+    parent's."""
     import torch
 
-    from repro_torch.configs import gemma_2b, mamba2_370m
+    from repro_torch.configs import gemma_2b, mamba2_370m, zamba2_1p2b
     from repro_torch.core import engine, lut
     from repro_torch.kernels.amr_matmul import kernel, ops
     from repro_torch.kernels.attn_fused import kernel as akernel
@@ -907,7 +916,8 @@ def time_kernels() -> dict:
     from repro_torch.kernels.ssd_scan import kernel as skernel
 
     out: dict[str, dict] = {"lut": {}, "grouped": {}, "lowrank": {}, "replay": {},
-                            "attn_fused_lut": {}, "attn_fused_inject": {}, "ssd": {}}
+                            "attn_fused_lut": {}, "attn_fused_inject": {}, "ssd": {},
+                            "ssd_bwd": {}}
     table = ops.kernel_table(BORDER, device)
     for model, site, g, m, k, n, grouped_b in gather_shapes(gemma_2b.CONFIG, mamba2_370m.CONFIG):
         lead = (g,) if grouped_b else ()
@@ -962,6 +972,24 @@ def time_kernels() -> dict:
         for split in (False, True):
             out["ssd"][f"S={S} {'split' if split else 'full'}"] = call_times(
                 lambda *a, split=split: skernel.ssd_scan(*a, Q, split=split), [args], 50)
+    # the backward on the forward's states (keep_states, as under autograd) and
+    # seeded output gradients: mamba2-370m's training shape in both modes, one
+    # sequence of 1024, zamba2-1.2b's training shape
+    for cfg, B, S, split in ((mamba2_370m.CONFIG, MAMBA_TRAIN_BATCH, SSD_CONTEXT, True),
+                             (mamba2_370m.CONFIG, MAMBA_TRAIN_BATCH, SSD_CONTEXT, False),
+                             (mamba2_370m.CONFIG, 1, SSD_LONG, True),
+                             (zamba2_1p2b.CONFIG, ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_SEQ, True)):
+        H, P, N, G, Q = ssd_widths(cfg)
+        args = ssd_inputs(device, gen, S, H, P, N, G, Q, batch=B)
+        nc = math.ceil(S / Q)
+        _, h_prev, _ = skernel._scan_cuda(*args, Q, split, keep_states=True)
+        dy = torch.randn((B, S, H, P), generator=gen, device=device)
+        dh_prev = torch.randn((B, nc, H, N, P), generator=gen, device=device) if split else None
+        dh_final = torch.randn((B, H, N, P), generator=gen, device=device)
+        key = f"{cfg.name} {(B, S)} {'split' if split else 'full'}"
+        out["ssd_bwd"][key] = call_times(
+            skernel.ssd_scan_bwd, [(*args, h_prev, dy, dh_prev, dh_final, Q)], 20)
+        del h_prev, dy, dh_prev, dh_final
     return out
 
 
@@ -984,7 +1012,7 @@ def phase_ab(parent: Path) -> dict:
         log(f"[ab] {label} run from {src} in {time.perf_counter() - t0:.1f}s")
     table = {}
     for kind in ("lut", "grouped", "lowrank", "replay", "attn_fused_lut", "attn_fused_inject",
-                 "ssd"):
+                 "ssd", "ssd_bwd"):
         for key, times in runs[1][1][kind].items():
             for what in times:
                 parent_ms = [r[kind].get(key, {}).get(what) for lab, r in runs if lab == "parent"]

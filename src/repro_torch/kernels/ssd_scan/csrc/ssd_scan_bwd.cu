@@ -35,37 +35,62 @@
 // scratch dstates (B, nc, H, N, P).  Rows past S are neither read nor
 // written.
 //
-// What bounds it on this card: float32 operations (about 2.4 times the
-// forward's: the lower triangle's C B^T and dy u^T dots, each recomputed
-// once, and its three products into dC, dB and du, plus four L N P
-// products for the state and the readout), on a few MB of operands: 67 T/s.
-// Plain FMAs, no tensor cores, as the forward (TF32 would change the
-// numbers).
+// What bounds it on this card: float32 operations, on a few MB of
+// operands: 67 T/s.  Per (chunk, head) the lower triangle's C B^T and dy
+// u^T dots and its three products into dC, dB and du (64^2 (3 N + 2 P)
+// multiply-adds a pair of 64-row tiles), plus four L N P products for the
+// state and the readout.  Plain FMAs, no tensor cores, as the forward (TF32
+// would change the numbers).  The FMAs read their operands from shared
+// memory, which serves 128 bytes a clock to an SM's 128 FMA lanes: a 4 x 4
+// register tile loads 8 floats a lane per 16 FMAs, so the loops run at about
+// half the FMA rate at best; the design keeps the tiles that large and the
+// loads free of bank conflicts.
 //
-// Design (a first, simple version: operands read from shared memory one
-// float a load, so the loads, not the FMAs, set its pace).  One block of
-// 256 threads per (chunk, batch, head), all of P.  A block:
+// Design.  One block of 256 threads per (chunk, batch, head), all of P; two
+// blocks an SM.  A block:
 //   1. loads dt and scans cum (one warp), as the forward;
-//   2. full mode: R = sum_t e_t C_t dy_t^T over 64-row tiles (N x P, in
-//      registers);
+//   2. full mode: one pass over 32-row t tiles of e_t C and dy: R = sum_t
+//      e_t C_t dy_t^T (N x P, in registers), and the readout's dC (the first
+//      write of those rows) and dcum;
 //   3. joins the state gradient across chunks, last chunk first: it waits
 //      until the block of the chunk after it has published D, writes
 //      dL/dh_c = dh_prev_c + R + exp(cum_L) D to dstates and publishes it;
-//   4. pass A, per 64-row tile t: the readout's dC and dcum, then per tile
-//      s <= t the masked tiles (C B^T and dy u^T recomputed, the mask before
-//      exp) into dC and the row sums of dseg; writes dC;
-//   5. pass B, per 64-row tile s: the state terms with D, then per tile t
-//      >= s the same masked tiles into dB and du and the column sums of
-//      dseg; writes dB and dx;
-//   6. the reverse cumsum of dcum (one warp), ddt and da_log's partial.
+//   4. per 64-row s tile (B_s, x_s and D loaded together, then staged): the
+//      state terms with D into dB_s and du_s (register tiles for the whole
+//      s loop), then per 32-row t tile with t >= s each masked tile computed
+//      once: C B^T on warps 0-3 and dy u^T on warps 4-7, a 4 x 4 register
+//      tile a thread; warps 0-3 apply the mask and decay, write M and dM o
+//      dec and keep the row and column sums of dseg in registers; then dB_s
+//      += (dM o dec)^T C_t and du_s += M^T dy_t (registers), and dC_t += (dM
+//      o dec) B_s, added to the rows of dc (L2-resident; only this block
+//      writes them, in ascending s, so the sum runs in a fixed order); then
+//      writes dB_s and dx;
+//   5. the reverse cumsum of dcum (one warp), ddt and da_log's partial.
 // Blocks take their item from a ticket (an atomic counter) last chunk
 // first, so the block a block waits on holds a lower ticket and is running
 // or done.  The block with the last ticket zeroes the ticket counter, and
 // the first chunk's block zeroes its chain counter: the counters are zero
-// between calls and a call is one launch.  Every sum runs in a fixed order
-// (each row of dcum is owned by one thread; block-wide sums are taken by
-// one thread in index order; no float atomics), so a call gives the same
-// bits every time.
+// between calls and a call is one launch.
+//
+// Tiles and loads: every product runs in 4 x 4 register tiles a thread,
+// its operands read from shared memory as float4, four k at a time or as
+// outer products one k at a time.  Each tile is staged in the layout its
+// products read: rows padded to N + 4, P + 4 and 68 floats, so rows stay
+// 16-byte aligned and each quarter-warp's loads (8 consecutive rows at one
+// column, or one row at 8 consecutive columns) fall on distinct banks; D
+// goes in once as it is (for B_s D) and once transposed (for u_s D^T), h_c
+// transposed.  bf16 B, C and x are widened once, when staged.  Staging
+// overlaps compute: the next t tile's C rows are loaded into registers
+// while dB_s and du_s compute and stored while dC_t computes, its dy rows
+// copied by cp.async meanwhile.  Sums run in a fixed order (warp shuffles of
+// fixed shape, per-warp partials added in warp order by one owner thread a
+// row; no float atomics), so a call gives the same bits every time.
+//
+// Shared memory a block at N = 128, P = 64, chunk 256: 100,352 bytes (the s
+// tiles 51,200, the t tiles and M, dM o dec 43,008, per-row arrays 5,120,
+// partials 1,024), so two blocks fit an SM; __launch_bounds__(256, 2) caps
+// a thread at 128 registers, which the bf16 kernel uses with 28 bytes
+// spilled (the float32 one 100; the s tile's dB and du tiles take 48).
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,34 +98,71 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 64;             // rows of a staged tile; t, s of the masked tiles
-constexpr int kMaxN = 128;            // d_state a block takes
-constexpr int kMaxP = 64;             // head_dim a block takes
-constexpr int kLdT = kTile + 1;       // leading dimension of a 64 x 64 tile
-constexpr int kPartCols = kMaxN / 4;  // per-row partials: one per 4-column group
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+constexpr int kS = 64;           // rows of an s tile: B_s, u_s and the dB_s, du_s register tiles
+constexpr int kT = 32;           // rows of a t tile: C_t and dy_t
+constexpr int kMaxN = 128;       // d_state a block takes
+constexpr int kMaxP = 64;        // head_dim a block takes
+constexpr int kLdM = kS + 4;     // leading dimension of the M and dM o dec tiles (kT x kS)
+constexpr int kParts = 256;      // per-warp partials of the row sums into dcum
+constexpr int kWarps = kThreads / 32;
+constexpr int kCLoads = kT * kMaxN / 4 / kThreads;   // four-element loads of a C tile a thread
+constexpr int kDyLoads = kT * kMaxP / 4 / kThreads;  // 16-byte copies of a dy tile
+constexpr int kBLoads = kS * kMaxN / 4 / kThreads;   // of a B tile
+constexpr int kULoads = kS * kMaxP / 4 / kThreads;   // of an x tile
+constexpr int kDLoads = kMaxN * kMaxP / 4 / kThreads;  // of an N x P state
 
 template <typename T>
-__device__ __forceinline__ T narrow(float v);
+struct Vec4;  // four elements of T, one load
 template <>
-__device__ __forceinline__ float narrow<float>(float v) { return v; }
+struct Vec4<float> {
+  using type = float4;
+  __device__ static float4 zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+};
 template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+struct Vec4<__nv_bfloat16> {
+  using type = uint2;
+  __device__ static uint2 zero() { return make_uint2(0u, 0u); }
+};
+
+__device__ __forceinline__ float4 widen4(float4 v) { return v; }
+__device__ __forceinline__ float4 widen4(uint2 v) {
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+template <typename T>
+__device__ __forceinline__ void narrow4(T* dst, const float (&v)[4]);
+template <>
+__device__ __forceinline__ void narrow4<float>(float* dst, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+template <>
+__device__ __forceinline__ void narrow4<__nv_bfloat16>(__nv_bfloat16* dst, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(dst) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                              *reinterpret_cast<const unsigned*>(&hi));
 }
 
 __host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
+__host__ __device__ inline size_t max2(size_t a, size_t b) { return a > b ? a : b; }
 
-// Shared memory in floats: C and B tiles (64 x (N + 1)), dy and x dt tiles
-// (64 x (P + 1)), the dCB, M and dseg tiles (64 x 65), h_c or D (N x (P +
-// 1)), five per-row arrays (dt, cum, dcum, du . x, V), the per-row partials
-// (64 x 32) and one float a thread for block sums.
+// Shared memory in floats, three regions and the partials:
+//   s region  B_s (64 x (N + 4)) and u_s (64 x (P + 4)); h_c^T (P x (N + 4))
+//             during the readout pass;
+//   t region  C_t (32 x (N + 4)), dy_t (32 x (P + 4)), M and dM o dec (32 x
+//             68); D (N x (P + 4)) or D^T (P x (N + 4)) during the state terms;
+//   rows      dt, cum, dcum, du . x and V, each rounded up to 64 rows.
+__host__ __device__ inline size_t region_s(int N, int P) {
+  return max2(size_t(kS) * (N + 4 + P + 4), size_t(P) * (N + 4));
+}
+__host__ __device__ inline size_t region_t(int N, int P) {
+  return max2(size_t(kT) * (N + 4 + P + 4 + 2 * kLdM),
+              max2(size_t(N) * (P + 4), size_t(P) * (N + 4)));
+}
 __host__ __device__ inline size_t smem_floats(int N, int P, int Q) {
-  const size_t rows = size_t(round_up(Q, kTile));
-  return 2 * size_t(kTile) * (N + 1) + 2 * size_t(kTile) * (P + 1) + 3 * size_t(kTile) * kLdT +
-         size_t(N) * (P + 1) + 5 * rows + size_t(kTile) * kPartCols + kThreads;
+  return region_s(N, P) + region_t(N, P) + 5 * size_t(round_up(Q, kS)) + kParts;
 }
 
 __device__ __forceinline__ int ld_acquire(const int* p) {
@@ -113,33 +175,192 @@ __device__ __forceinline__ void st_release(int* p, int v) {
   asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
-// acc[i][j] += sum_{k < K} a[i * a_i + k * a_k] * b[k * b_k + j * b_j]: one
-// 4 x 4 micro-tile of a product, operands from shared memory at any strides
-// (so one routine takes a tile and its transpose).
-__device__ __forceinline__ void mm(float (&acc)[4][4], const float* a, int a_i, int a_k,
-                                   const float* b, int b_k, int b_j, int K) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float av[4], bv[4];
+// 16 bytes from global to shared memory without registers, zeros where
+// !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ float comp(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float (&b)[4]) {
+  return fmaf(a.w, b[3], fmaf(a.z, b[2], fmaf(a.y, b[1], a.x * b[0])));
+}
+
+template <int I, int J>
+__device__ __forceinline__ void zero(float (&acc)[I][J]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[i * a_i + k * a_k];
+  for (int i = 0; i < I; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[k * b_k + j * b_j];
+    for (int j = 0; j < J; ++j) acc[i][j] = 0.f;
+}
+
+__device__ __forceinline__ float warp_sum(float v, int from, int to) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int o = from; o < to; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// acc[i][j] += sum_k a[i][k] b[j][k] over k in [0, K), K % 4 == 0: rows i of
+// a at a + i * a_i, rows j of b at b + j * b_j, both k-contiguous.
+template <int I, int J>
+__device__ __forceinline__ void dot_tile(float (&acc)[I][J], const float* a, int a_i,
+                                         const float* b, int b_j, int K) {
+#pragma unroll 1
+  for (int k = 0; k < K; k += 4) {
+    float4 av[I], bv[J];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    for (int i = 0; i < I; ++i) av[i] = ld4(a + i * a_i + k);
+#pragma unroll
+    for (int j = 0; j < J; ++j) bv[j] = ld4(b + j * b_j + k);
+#pragma unroll
+    for (int i = 0; i < I; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
+        acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
+        acc[i][j] = fmaf(av[i].z, bv[j].z, acc[i][j]);
+        acc[i][j] = fmaf(av[i].w, bv[j].w, acc[i][j]);
+      }
   }
 }
 
-template <int R>
-__device__ __forceinline__ void zero(float (&acc)[R][4][4]) {
+// acc[i][j] += sum_k a[i][k] b[k][j] over k in [0, K), K % 4 == 0: rows i of
+// a at a + i * a_i (k-contiguous), row k of b at b + k * ldb (the 4 columns j
+// contiguous).
+__device__ __forceinline__ void mul_tile(float (&acc)[4][4], const float* a, int a_i,
+                                         const float* b, int ldb, int K) {
+#pragma unroll 1
+  for (int k = 0; k < K; k += 4) {
+    float4 av[4], bv[4];
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+    for (int i = 0; i < 4; ++i) av[i] = ld4(a + i * a_i + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) bv[kk] = ld4(b + (k + kk) * ldb);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[r][i][j] = 0.f;
+      for (int kk = 0; kk < 4; ++kk) {
+        const float av_k = comp(av[i], kk);
+        acc[i][0] = fmaf(av_k, bv[kk].x, acc[i][0]);
+        acc[i][1] = fmaf(av_k, bv[kk].y, acc[i][1]);
+        acc[i][2] = fmaf(av_k, bv[kk].z, acc[i][2]);
+        acc[i][3] = fmaf(av_k, bv[kk].w, acc[i][3]);
+      }
+  }
+}
+
+// acc[i][j] += a[i] b[j]: one k of a product whose operands both hold k as
+// their row.
+__device__ __forceinline__ void outer(float (&acc)[4][4], const float4& a, const float4& b) {
+  const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc[i][0] = fmaf(av[i], b.x, acc[i][0]);
+    acc[i][1] = fmaf(av[i], b.y, acc[i][1]);
+    acc[i][2] = fmaf(av[i], b.z, acc[i][2]);
+    acc[i][3] = fmaf(av[i], b.w, acc[i][3]);
+  }
+}
+
+__device__ __forceinline__ void scale_rows(float (&acc)[4][4], const float (&w)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] *= w[i];
+}
+
+// The masked tiles of a pair (t tile at t0 in s_c / s_dy, s tile at s0 in
+// s_b / s_u), a 4 x JN register tile a thread, rows ty + 8 i and columns tx +
+// 16 j (JN = 2 where the t tile's last row precedes the s tile's column 32):
+// warps 0-3 take C B^T over N, warps 4-7 dy u^T over P and leave it in s_dm;
+// then warps 0-3 apply the mask and the decay (the mask before exp), write M
+// and dM o dec, and add dseg = dM o M to their row and column partials.  All
+// threads call it: it holds a barrier.
+template <int JN>
+__device__ __forceinline__ void masked_tiles(float (&rowp)[4], float (&colp)[4], const float* s_c,
+                                             const float* s_b, int ldn, int N, const float* s_dy,
+                                             const float* s_u, int ldp, int P,
+                                             const float* s_cum, float* s_m, float* s_dm,
+                                             bool dyu_half, int ty, int tx, int t0, int s0,
+                                             int L) {
+  float acc[4][JN];
+  zero(acc);
+  if (!dyu_half) {
+    dot_tile(acc, s_c + ty * ldn, 8 * ldn, s_b + tx * ldn, 16 * ldn, N);
+  } else {
+    dot_tile(acc, s_dy + ty * ldp, 8 * ldp, s_u + tx * ldp, 16 * ldp, P);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < JN; ++j) s_dm[(ty + 8 * i) * kLdM + tx + 16 * j] = acc[i][j];
+  }
+  __syncthreads();
+  if (dyu_half) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int tl = ty + 8 * i, t = t0 + tl;
+    const float ct = s_cum[t];
+#pragma unroll
+    for (int j = 0; j < JN; ++j) {
+      const int sl = tx + 16 * j, s = s0 + sl;
+      const float dec = (s <= t && t < L) ? expf(ct - s_cum[s]) : 0.f;
+      const float dyu = s_dm[tl * kLdM + sl];
+      const float m = acc[i][j] * dec;
+      const float seg = dyu * m;
+      s_m[tl * kLdM + sl] = m;
+      s_dm[tl * kLdM + sl] = dyu * dec;
+      rowp[i] += seg;
+      colp[j] += seg;
+    }
+  }
+}
+
+// acc[r][i][j] += sum_k a[i][k] b[k][r b_r + j] over k in [0, K), K % 4 ==
+// 0, r < R: mul_tile for R column tiles that share their rows of a.
+template <int R>
+__device__ __forceinline__ void mul_tiles(float (&acc)[2][4][4], const float* a, int a_i,
+                                          const float* b, int ldb, int b_r, int K) {
+#pragma unroll 1
+  for (int k = 0; k < K; k += 4) {
+    float4 av[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = ld4(a + i * a_i + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float4 bv[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) bv[r] = ld4(b + (k + kk) * ldb + r * b_r);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float av_k = comp(av[i], kk);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          acc[r][i][0] = fmaf(av_k, bv[r].x, acc[r][i][0]);
+          acc[r][i][1] = fmaf(av_k, bv[r].y, acc[r][i][1]);
+          acc[r][i][2] = fmaf(av_k, bv[r].z, acc[r][i][2]);
+          acc[r][i][3] = fmaf(av_k, bv[r].w, acc[r][i][3]);
+        }
+      }
+    }
+  }
 }
 
 struct Params {
@@ -163,30 +384,31 @@ struct Params {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1) ssd_scan_bwd_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads, 2) ssd_scan_bwd_kernel(const Params p) {
+  using V4 = typename Vec4<T>::type;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int N = p.N, P = p.P, ldn = N + 1, ldp = P + 1;
-  const int Qr = round_up(p.Q, kTile);
-  float* s_c = smem;                       // [64][N + 1]  C rows of a t tile
-  float* s_b = s_c + kTile * ldn;          // [64][N + 1]  B rows of an s tile
-  float* s_dy = s_b + kTile * ldn;         // [64][P + 1]  dy rows of a t tile
-  float* s_u = s_dy + kTile * ldp;         // [64][P + 1]  x dt rows of an s tile
-  float* s_dcb = s_u + kTile * ldp;        // [64][65]     dM o dec, (t, s)
-  float* s_m = s_dcb + kTile * kLdT;       // [64][65]     M
-  float* s_dseg = s_m + kTile * kLdT;      // [64][65]     dM o M
-  float* s_hd = s_dseg + kTile * kLdT;     // [N][P + 1]   h_c (pass A), D (pass B)
-  float* s_dt = s_hd + N * ldp;            // [Qr]
-  float* s_cum = s_dt + Qr;                // [Qr]
-  float* s_dcum = s_cum + Qr;              // [Qr]  dL/dcum, then dL/dla
-  float* s_dux = s_dcum + Qr;              // [Qr]  du . x
-  float* s_v = s_dux + Qr;                 // [Qr]  V_s
-  float* s_part = s_v + Qr;                // [64][32]  per-row partials
-  float* s_red = s_part + kTile * kPartCols;  // [256]
+  const int N = p.N, P = p.P, ldn = N + 4, ldp = P + 4, nq = N / 4, pq = P / 4;
+  const int Qr = round_up(p.Q, kS);
+  float* s_b = smem;                           // [64][N + 4]  B rows of an s tile
+  float* s_u = s_b + kS * ldn;                 // [64][P + 4]  x dt rows of an s tile
+  float* s_ht = smem;                          // [P][N + 4]   h_c^T (the readout pass)
+  float* s_c = smem + region_s(N, P);          // [32][N + 4]  C rows of a t tile (e_t C, readout)
+  float* s_dy = s_c + kT * ldn;                // [32][P + 4]  dy rows of a t tile
+  float* s_m = s_dy + kT * ldp;                // [32][68]     M, (t, s)
+  float* s_dm = s_m + kT * kLdM;               // [32][68]     dM o dec
+  float* s_d = s_c;                            // [N][P + 4]   D (the state terms)
+  float* s_dtr = s_c;                          // [P][N + 4]   D^T (the state terms)
+  float* s_dt = s_c + region_t(N, P);          // [Qr]
+  float* s_cum = s_dt + Qr;                    // [Qr]
+  float* s_dcum = s_cum + Qr;                  // [Qr]  dL/dcum, then dL/dla
+  float* s_dux = s_dcum + Qr;                  // [Qr]  du . x
+  float* s_v = s_dux + Qr;                     // [Qr]  V_s
+  float* s_part = s_v + Qr;                    // [256] per-warp partials of the row sums
   __shared__ int s_ticket;
-  __shared__ float s_dq;  // dL/dcum_L beyond dcum's rows: the join and sum V
+  __shared__ float s_red[kWarps];
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nc = (p.S + p.Q - 1) / p.Q;
   const int per_chunk = p.B * p.H;
   if (tid == 0 && nc > 1) {  // one chunk: no block waits on another, the grid order serves
@@ -203,7 +425,6 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_bwd_kernel(const Params 
   const int g = hd / (p.H / p.G);
   const int r0 = ci * p.Q;
   const int L = min(p.Q, p.S - r0);
-  const int n_tiles = (L + kTile - 1) / kTile;
   const size_t row0 = size_t(bi) * p.S + r0;  // sequence row of the chunk's first row
   const T* x = static_cast<const T*>(p.x);
   const T* bsrc = static_cast<const T*>(p.b);
@@ -214,63 +435,81 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_bwd_kernel(const Params 
   auto at_bc = [&](int r, int col) { return ((row0 + r) * p.G + g) * size_t(N) + col; };
   auto at_h = [&](int r, int col) { return ((row0 + r) * p.H + hd) * size_t(N) + col; };
 
-  // rows [base, base + 64) of the chunk into a tile, zero past L; c scaled
-  // by e_t where asked
-  auto stage_bc = [&](float* dst, const T* src, int base, bool by_e) {
-    for (int e = tid; e < kTile * N; e += kThreads) {
-      const int r = e / N, col = e - r * N;
-      float v = 0.f;
-      if (base + r < L) {
-        v = widen(src[at_bc(base + r, col)]);
-        if (by_e) v *= expf(s_cum[base + r]);
-      }
-      dst[r * ldn + col] = v;
-    }
-  };
-  auto stage_u = [&](int base) {
-    for (int e = tid; e < kTile * P; e += kThreads) {
-      const int r = e / P, col = e - r * P;
-      s_u[r * ldp + col] = base + r < L ? widen(x[at_x(base + r, col)]) * s_dt[base + r] : 0.f;
-    }
-  };
-  auto stage_dy = [&](int base) {
-    for (int e = tid; e < kTile * P; e += kThreads) {
-      const int r = e / P, col = e - r * P;
-      s_dy[r * ldp + col] = base + r < L ? p.dy[at_x(base + r, col)] : 0.f;
-    }
-  };
-  // the masked tiles of the pair (t tile at t0 in s_c / s_dy, s tile at s0
-  // in s_b / s_u): one 4 x 4 micro-tile a thread, rows t0 + ty * 4 + i,
-  // columns s0 + tx * 4 + j; the mask before exp
-  auto masked_tiles = [&](int t0, int s0) {
-    const int ty = tid % 16, tx = tid / 16;
-    float cb[4][4], dyu[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) cb[i][j] = dyu[i][j] = 0.f;
-    mm(cb, s_c + ty * 4 * ldn, ldn, 1, s_b + tx * 4 * ldn, 1, ldn, N);
-    mm(dyu, s_dy + ty * 4 * ldp, ldp, 1, s_u + tx * 4 * ldp, 1, ldp, P);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int tl = ty * 4 + i, t = t0 + tl;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int sl = tx * 4 + j, s = s0 + sl;
-        const float dec = (s <= t && t < L) ? expf(s_cum[t] - s_cum[s]) : 0.f;
-        const float m = cb[i][j] * dec;
-        s_m[tl * kLdT + sl] = m;
-        s_dcb[tl * kLdT + sl] = dyu[i][j] * dec;
-        s_dseg[tl * kLdT + sl] = dyu[i][j] * m;
-      }
-    }
-  };
-  // sums of the per-row partials of rows [base, base + 64) over `cols`
-  // column groups, in order, by the row's owner thread (tid < 64)
-  auto row_partials = [&](int cols) {
+  // a block-wide sum in a fixed order: a butterfly in each warp (every lane
+  // ends with the same bits), then the warps' sums in warp order
+  auto block_sum = [&](float v) {
+    v = warp_sum(v, 1, 32);
+    __syncthreads();  // s_red is free
+    if (lane == 0) s_red[warp] = v;
+    __syncthreads();
     float sum = 0.f;
-    for (int k = 0; k < cols; ++k) sum += s_part[tid * kPartCols + k];
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += s_red[w];
     return sum;
+  };
+
+  // the next t tile in flight: its C rows (kT x N) in registers, stored
+  // widened (scaled by e_t where asked), and its dy rows (kT x P) straight
+  // into shared memory (cp.async); zero past L
+  V4 pc[kCLoads];
+  auto load_c = [&](int t0) {
+#pragma unroll
+    for (int k = 0; k < kCLoads; ++k) {
+      const int e = tid + k * kThreads, r = e / nq, c4 = e - r * nq;
+      pc[k] = (r < kT && t0 + r < L) ? *reinterpret_cast<const V4*>(csrc + at_bc(t0 + r, 4 * c4))
+                                     : Vec4<T>::zero();
+    }
+  };
+  auto store_c = [&](int t0, bool by_e) {
+#pragma unroll
+    for (int k = 0; k < kCLoads; ++k) {
+      const int e = tid + k * kThreads, r = e / nq, c4 = e - r * nq;
+      if (r < kT) {
+        float4 v = widen4(pc[k]);
+        if (by_e) {
+          const float et = t0 + r < L ? expf(s_cum[t0 + r]) : 0.f;
+          v = make_float4(v.x * et, v.y * et, v.z * et, v.w * et);
+        }
+        *reinterpret_cast<float4*>(s_c + r * ldn + 4 * c4) = v;
+      }
+    }
+  };
+  auto copy_dy = [&](int t0) {
+#pragma unroll
+    for (int k = 0; k < kDyLoads; ++k) {
+      const int e = tid + k * kThreads, r = e / pq, c4 = e - r * pq;
+      const bool valid = t0 + r < L;
+      if (r < kT)
+        cp_async16(s_dy + r * ldp + 4 * c4, valid ? p.dy + at_x(t0 + r, 4 * c4) : p.dy, valid);
+    }
+  };
+  // an N x P state (global, row-major) in registers, four floats a load, a
+  // warp's lanes on consecutive rows n; stored as it is (N x (P + 4)) or
+  // transposed (P x (N + 4)), either way a warp's stores on distinct banks
+  auto load_state = [&](float4 (&v)[kDLoads], const float* src, bool cg_load) {
+#pragma unroll
+    for (int k = 0; k < kDLoads; ++k) {
+      const int e = tid + k * kThreads, n = e % N, c4 = e / N;
+      const float* at = src + size_t(n) * P + 4 * c4;
+      v[k] = c4 >= pq  ? make_float4(0.f, 0.f, 0.f, 0.f)
+             : cg_load ? __ldcg(reinterpret_cast<const float4*>(at))
+                       : ld4(at);
+    }
+  };
+  auto store_state = [&](float* dst, const float4 (&v)[kDLoads], bool transposed) {
+#pragma unroll
+    for (int k = 0; k < kDLoads; ++k) {
+      const int e = tid + k * kThreads, n = e % N, c4 = e / N;
+      if (c4 >= pq) continue;
+      if (transposed) {
+        dst[(4 * c4 + 0) * ldn + n] = v[k].x;
+        dst[(4 * c4 + 1) * ldn + n] = v[k].y;
+        dst[(4 * c4 + 2) * ldn + n] = v[k].z;
+        dst[(4 * c4 + 3) * ldn + n] = v[k].w;
+      } else {
+        *reinterpret_cast<float4*>(dst + n * ldp + 4 * c4) = v[k];
+      }
+    }
   };
 
   // ---- 1. dt, the cumulative log decay
@@ -284,7 +523,6 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_bwd_kernel(const Params 
   }
   __syncthreads();
   if (tid < 32) {  // inclusive scan of la = -A dt by warp 0, 32 rows at a time
-    const int lane = tid;
     float carry = 0.f;
     for (int base = 0; base < L; base += 32) {
       const int t = base + lane;
@@ -303,36 +541,77 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_bwd_kernel(const Params 
   const float cum_q = s_cum[L - 1];
   const float decay_q = expf(cum_q);
   const bool readout = !p.split && ci > 0;  // h_0 = 0: the first chunk reads out nothing
+  const size_t hs = size_t(N) * P;
+  const size_t slot = ((size_t(bi) * nc + ci) * p.H + hd) * hs;
 
-  // ---- 2. R = sum_t e_t C_t dy_t^T, N x P micro-tiles (rows n, columns p)
-  const int rg_np = N / 4;
-  const int n_np = (N / 4) * (P / 4);
+  // register tiles of the products (rows x columns, 4 x 4 a tile):
+  //   R      (n, p) = (4 (m >> 4) + i, 4 (m & 15) + j), m = tid + 256 r
+  //   dC     (t, n) = (rg + 8 i, 4 cg + j)
+  //   dB_s   (s, n) = (4 sg + i, 4 (lq + 16 r) + j);  du_s (s, p) = (4 sg + i, 4 lq + j)
+  //   masked (t, s) = (ty + 8 i, tx + 16 j): C B^T on warps 0-3, dy u^T on 4-7
+  const int rg = lane & 7, cg = (lane >> 3) + 4 * warp;
+  const int sg = tid >> 4, lq = tid & 15;
+  const bool dyu_half = warp >= kWarps / 2;
+  const int ty = lane & 7, tx = (lane >> 3) + 4 * (warp & 3);
+
+  // ---- 2. full mode: R = sum_t e_t C_t dy_t^T, the readout's dC and dcum
   float racc[2][4][4];
-  zero(racc);
+  zero(racc[0]);
+  zero(racc[1]);
   if (readout) {
-    for (int tt = 0; tt < n_tiles; ++tt) {
-      const int t0 = tt * kTile;
-      const int kt = min(kTile, L - t0);
-      __syncthreads();
-      stage_bc(s_c, csrc, t0, true);
-      stage_dy(t0);
+    float4 hv[kDLoads];
+    load_state(hv, p.h_prev + slot, false);
+    store_state(s_ht, hv, true);
+    for (int t0 = 0; t0 < L; t0 += kT) {  // the previous tile is consumed
+      const int kt = min(kT, L - t0);
+      copy_dy(t0);
+      load_c(t0);
+      store_c(t0, true);
+      cp_async_wait_all();
       __syncthreads();
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int m = tid + r * kThreads;
-        if (m < n_np) {
-          const int rg = m % rg_np, cg = m / rg_np;
-          mm(racc[r], s_c + rg * 4, 1, ldn, s_dy + cg * 4, ldp, 1, kt);
+        const int m = tid + r * kThreads, ng = m >> 4, pg = m & 15;
+        if (ng < nq && pg < pq)
+#pragma unroll 2
+          for (int k = 0; k < kt; ++k)
+            outer(racc[r], ld4(s_c + k * ldn + 4 * ng), ld4(s_dy + k * ldp + 4 * pg));
+      }
+      // Z = dy h_c^T: dC_t = e_t Z_t, dcum_t += e_t C_t . Z_t
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+      if (cg < nq) {
+        float z[4][4];
+        zero(z);
+        mul_tile(z, s_dy + rg * ldp, 8 * ldp, s_ht + 4 * cg, ldn, P);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int tl = rg + 8 * i, t = t0 + tl;
+          part[i] = dot4(ld4(s_c + tl * ldn + 4 * cg), z[i]);
+          if (t < L) {
+            const float et = expf(s_cum[t]);
+            const float o[4] = {z[i][0] * et, z[i][1] * et, z[i][2] * et, z[i][3] * et};
+            st4(p.dch + at_h(t, 4 * cg), o);
+          }
         }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        part[i] = warp_sum(part[i], 8, 32);
+        if (lane < 8) s_part[warp * 32 + rg + 8 * i] = part[i];
+      }
+      __syncthreads();
+      if (tid < kT && t0 + tid < L) {
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) sum += s_part[w * 32 + tid];
+        s_dcum[t0 + tid] += sum;
       }
     }
   }
 
   // ---- 3. the state gradient across chunks, last chunk first
   int* chain = p.counters + 1 + bi * p.H + hd;
-  const size_t hs = size_t(N) * P;
   const size_t head = (size_t(bi) * p.H + hd) * hs;
-  const size_t slot = ((size_t(bi) * nc + ci) * p.H + hd) * hs;
   const float* d_src = ci + 1 < nc ? p.dstates + ((size_t(bi) * nc + ci + 1) * p.H + hd) * hs
                                    : p.dh_final + head;
   if (tid == 0 && ci + 1 < nc) {
@@ -343,20 +622,19 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_bwd_kernel(const Params 
   float dot = 0.f;  // this thread's share of <D, h_c>
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int m = tid + r * kThreads;
-    if (m >= n_np) continue;
-    const int rg = m % rg_np, cg = m / rg_np;
+    const int m = tid + r * kThreads, ng = m >> 4, pg = m & 15;
+    if (ng >= nq || pg >= pq) continue;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const size_t at = size_t(rg * 4 + i) * P + cg * 4;
+      const size_t at = size_t(4 * ng + i) * P + 4 * pg;
       const float4 d = __ldcg(reinterpret_cast<const float4*>(d_src + at));
       const float dv[4] = {d.x, d.y, d.z, d.w};
       float hv[4] = {0.f, 0.f, 0.f, 0.f}, pv[4] = {0.f, 0.f, 0.f, 0.f};
       if (ci > 0) {
-        const float4 h = *reinterpret_cast<const float4*>(p.h_prev + slot + at);
+        const float4 h = ld4(p.h_prev + slot + at);
         hv[0] = h.x, hv[1] = h.y, hv[2] = h.z, hv[3] = h.w;
         if (p.split) {
-          const float4 q = *reinterpret_cast<const float4*>(p.dh_prev + slot + at);
+          const float4 q = ld4(p.dh_prev + slot + at);
           pv[0] = q.x, pv[1] = q.y, pv[2] = q.z, pv[3] = q.w;
         }
       }
@@ -366,8 +644,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_bwd_kernel(const Params 
         dot = fmaf(dv[j], hv[j], dot);
         gv[j] = racc[r][i][j] + decay_q * dv[j] + pv[j];
       }
-      if (ci > 0)  // the first chunk's state is 0: nothing reads its gradient
-        *reinterpret_cast<float4*>(p.dstates + slot + at) = make_float4(gv[0], gv[1], gv[2], gv[3]);
+      if (ci > 0) st4(p.dstates + slot + at, gv);  // the first chunk's state is 0: unread
     }
   }
   if (nc > 1) {
@@ -375,219 +652,204 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_bwd_kernel(const Params 
     __syncthreads();
     if (tid == 0) st_release(chain, ci > 0 ? rank + 1 : 0);  // the first chunk leaves it 0
   }
-  s_red[tid] = dot;
-  __syncthreads();
-  if (tid == 0) {
-    float sum = 0.f;
-    for (int k = 0; k < kThreads; ++k) sum += s_red[k];
-    s_dq = decay_q * sum;
-  }
+  const float dq = decay_q * block_sum(dot);  // dL/dcum_L from exp(cum_L) <D, h_c>
 
-  // ---- 4. pass A: dC, the readout's and the row sums' dcum
-  if (readout) {
-    for (int e = tid; e < N * P; e += kThreads) {
-      const int n = e / P, col = e - n * P;
-      s_hd[n * ldp + col] = p.h_prev[slot + e];
-    }
-  }
-  const int n_n = 4 * N;  // 4 x 4 micro-tiles of a 64 x N output: rg = m % 16, cg = m / 16
-  const int n_p = 4 * P;  // of a 64 x P output (at most one a thread)
-  for (int tt = 0; tt < n_tiles; ++tt) {
-    const int t0 = tt * kTile;
-    __syncthreads();
-    stage_bc(s_c, csrc, t0, false);
-    stage_dy(t0);
-    __syncthreads();
-    float cacc[2][4][4];
-    zero(cacc);
-    if (readout) {  // Z = dy h_c^T: dC_t += e_t Z_t, dcum_t += e_t C_t . Z_t
+  // ---- 4. per s tile: the state terms, the masked tiles with every t tile >= s
+  T* dx = static_cast<T*>(p.dx);
+  for (int s0 = 0; s0 < L; s0 += kS) {
+    const int s_end = min(s0 + kS, L);
+    // B_s, x_s and D in flight together, each thread's loads before its stores
+    V4 vb[kBLoads], vu[kULoads];
+    float4 vd[kDLoads];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int m = tid + r * kThreads;
-        if (m >= n_n) continue;
-        const int rg = m % 16, cg = m / 16;
-        mm(cacc[r], s_dy + rg * 4 * ldp, ldp, 1, s_hd + cg * 4 * ldp, 1, ldp, P);
+    for (int k = 0; k < kBLoads; ++k) {
+      const int e = tid + k * kThreads, r = e / nq, c4 = e - r * nq;
+      vb[k] = (r < kS && s0 + r < L) ? *reinterpret_cast<const V4*>(bsrc + at_bc(s0 + r, 4 * c4))
+                                     : Vec4<T>::zero();
+    }
+#pragma unroll
+    for (int k = 0; k < kULoads; ++k) {
+      const int e = tid + k * kThreads, r = e / pq, c4 = e - r * pq;
+      vu[k] = (r < kS && s0 + r < L) ? *reinterpret_cast<const V4*>(x + at_x(s0 + r, 4 * c4))
+                                     : Vec4<T>::zero();
+    }
+    load_state(vd, d_src, true);
+    __syncthreads();  // the previous s tile is consumed
+#pragma unroll
+    for (int k = 0; k < kBLoads; ++k) {
+      const int e = tid + k * kThreads, r = e / nq, c4 = e - r * nq;
+      if (r < kS) *reinterpret_cast<float4*>(s_b + r * ldn + 4 * c4) = widen4(vb[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kULoads; ++k) {
+      const int e = tid + k * kThreads, r = e / pq, c4 = e - r * pq;
+      if (r < kS) {
+        const float d = s_dt[s0 + r];  // 0 past L
+        const float4 v = widen4(vu[k]);
+        *reinterpret_cast<float4*>(s_u + r * ldp + 4 * c4) =
+            make_float4(v.x * d, v.y * d, v.z * d, v.w * d);
+      }
+    }
+    store_state(s_d, vd, false);
+    __syncthreads();
+    float w[4];  // w_s of the thread's rows of dB_s and du_s
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = s0 + 4 * sg + i;
+      w[i] = s < L ? expf(cum_q - s_cum[s]) : 0.f;
+    }
+    // du_s = w_s B_s D
+    float uacc[4][4];
+    zero(uacc);
+    if (lq < pq) mul_tile(uacc, s_b + 4 * sg * ldn, ldn, s_d + 4 * lq, ldp, N);
+    scale_rows(uacc, w);
+    __syncthreads();  // D is consumed
+    store_state(s_dtr, vd, true);
+    __syncthreads();
+    // Y2 = u_s D^T: dB_s = w_s Y2_s, V_s = w_s B_s . Y2_s
+    float bacc[2][4][4];
+    zero(bacc[0]);
+    zero(bacc[1]);
+    if (lq + 16 < nq)
+      mul_tiles<2>(bacc, s_u + 4 * sg * ldp, ldp, s_dtr + 4 * lq, ldn, 64, P);
+    else if (lq < nq)
+      mul_tiles<1>(bacc, s_u + 4 * sg * ldp, ldp, s_dtr + 4 * lq, ldn, 64, P);
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n0 = 4 * (lq + 16 * r);
+      if (n0 >= N) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] += dot4(ld4(s_b + (4 * sg + i) * ldn + n0), bacc[r][i]);
+      scale_rows(bacc[r], w);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float vs = w[i] * warp_sum(v[i], 1, 16);
+      const int s = s0 + 4 * sg + i;
+      if (lq == 0 && s < L) {
+        s_v[s] = vs;
+        s_dcum[s] -= vs;
+      }
+    }
+
+    float colp[4] = {0.f, 0.f, 0.f, 0.f};  // column sums of dseg over the t tiles
+    const bool fresh = !readout && s0 == 0;  // the first write of dC's rows
+    load_c(s0);
+    __syncthreads();  // D^T is consumed
+    copy_dy(s0);
+    store_c(s0, false);
+    cp_async_wait_all();
+    __syncthreads();
+    for (int t0 = s0; t0 < L; t0 += kT) {
+      const int t_end = min(t0 + kT, L);
+      const int s_lim = min(t_end, s_end) - s0;  // s columns [0, s_lim) meet a t <= t_end - 1
+      float rowp[4] = {0.f, 0.f, 0.f, 0.f};
+      if (s_lim <= 32)
+        masked_tiles<2>(rowp, colp, s_c, s_b, ldn, N, s_dy, s_u, ldp, P, s_cum, s_m, s_dm,
+                        dyu_half, ty, tx, t0, s0, L);
+      else
+        masked_tiles<4>(rowp, colp, s_c, s_b, ldn, N, s_dy, s_u, ldp, P, s_cum, s_m, s_dm,
+                        dyu_half, ty, tx, t0, s0, L);
+      if (!dyu_half) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int tl = rg * 4 + i;
-          float sp = 0.f;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) sp = fmaf(cacc[r][i][j], s_c[tl * ldn + cg * 4 + j], sp);
-          s_part[tl * kPartCols + cg] = sp;
-          const float et = t0 + tl < L ? expf(s_cum[t0 + tl]) : 0.f;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) cacc[r][i][j] *= et;
+          rowp[i] = warp_sum(rowp[i], 8, 32);
+          if (lane < 8) s_part[warp * 32 + ty + 8 * i] = rowp[i];
         }
       }
-      __syncthreads();
-      if (tid < kTile && t0 + tid < L) s_dcum[t0 + tid] += expf(s_cum[t0 + tid]) * row_partials(N / 4);
-    }
-    for (int st = 0; st <= tt; ++st) {
-      const int s0 = st * kTile;
-      const int ks = round_up(min(kTile, L - s0), 4);
-      __syncthreads();
-      stage_bc(s_b, bsrc, s0, false);
-      stage_u(s0);
-      __syncthreads();
-      masked_tiles(t0, s0);
-      __syncthreads();
+      const bool more = t_end < L;
+      if (more) load_c(t_end);  // in flight during dB_s and du_s
+      __syncthreads();  // M, dM o dec and the row partials are complete
+      if (tid < kT && t0 + tid < L)
+        s_dcum[t0 + tid] +=
+            (s_part[tid] + s_part[32 + tid]) + (s_part[64 + tid] + s_part[96 + tid]);
+      // dB_s += (dM o dec)^T C_t, du_s += M^T dy_t: rows of the s tile past the
+      // t tile's last row take nothing
+      if (4 * sg < s_lim) {
+#pragma unroll 2
+        for (int k = 0; k < t_end - t0; ++k) {
+          const float4 a_dm = ld4(s_dm + k * kLdM + 4 * sg);
+          const float4 a_m = ld4(s_m + k * kLdM + 4 * sg);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int m = tid + r * kThreads;
-        if (m < n_n) {
-          const int rg = m % 16, cg = m / 16;
-          mm(cacc[r], s_dcb + rg * 4 * kLdT, kLdT, 1, s_b + cg * 4, ldn, 1, ks);
+          for (int r = 0; r < 2; ++r)
+            if (4 * (lq + 16 * r) < N) outer(bacc[r], a_dm, ld4(s_c + k * ldn + 4 * (lq + 16 * r)));
+          if (lq < pq) outer(uacc, a_m, ld4(s_dy + k * ldp + 4 * lq));
         }
       }
-      if (tid < kTile) {
-        float sum = 0.f;
-        for (int k = 0; k < ks; ++k) sum += s_dseg[tid * kLdT + k];
-        s_dcum[t0 + tid] += sum;
+      __syncthreads();  // C_t and dy_t are consumed: the next t tile goes in during dC_t
+      if (more) {
+        copy_dy(t_end);
+        store_c(t_end, false);
       }
-    }
+      // dC_t += (dM o dec) B_s, added to the rows already written
+      if (cg < nq) {
+        float z[4][4];
+        zero(z);
+        mul_tile(z, s_dm + rg * kLdM, 8 * kLdM, s_b + 4 * cg, ldn, round_up(s_lim, 4));
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int m = tid + r * kThreads;
-      if (m >= n_n) continue;
-      const int rg = m % 16, cg = m / 16;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = t0 + rg * 4 + i;
-        if (t < L)
-          *reinterpret_cast<float4*>(p.dch + at_h(t, cg * 4)) =
-              make_float4(cacc[r][i][0], cacc[r][i][1], cacc[r][i][2], cacc[r][i][3]);
-      }
-    }
-  }
-
-  // ---- 5. pass B: the state terms with D, dB, du and the column sums' dcum
-  __syncthreads();
-  for (int e = tid; e < N * P; e += kThreads) {
-    const int n = e / P, col = e - n * P;
-    s_hd[n * ldp + col] = __ldcg(d_src + e);
-  }
-  T* dx = static_cast<T*>(p.dx);
-  for (int st = 0; st < n_tiles; ++st) {
-    const int s0 = st * kTile;
-    __syncthreads();
-    stage_bc(s_b, bsrc, s0, false);
-    stage_u(s0);
-    __syncthreads();
-    float bacc[2][4][4], uacc[4][4];
-    zero(bacc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) uacc[i][j] = 0.f;
-    // Y2 = u D^T (dB_s = w_s Y2_s, V_s = w_s B_s . Y2_s) and B D (du_s = w_s B_s D)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int m = tid + r * kThreads;
-      if (m >= n_n) continue;
-      const int rg = m % 16, cg = m / 16;
-      mm(bacc[r], s_u + rg * 4 * ldp, ldp, 1, s_hd + cg * 4 * ldp, 1, ldp, P);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int sl = rg * 4 + i;
-        float sp = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sp = fmaf(bacc[r][i][j], s_b[sl * ldn + cg * 4 + j], sp);
-        s_part[sl * kPartCols + cg] = sp;
-        const float w = s0 + sl < L ? expf(cum_q - s_cum[s0 + sl]) : 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bacc[r][i][j] *= w;
-      }
-    }
-    if (tid < n_p) {
-      const int rg = tid % 16, cg = tid / 16;
-      mm(uacc, s_b + rg * 4 * ldn, ldn, 1, s_hd + cg * 4, ldp, 1, N);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int s = s0 + rg * 4 + i;
-        const float w = s < L ? expf(cum_q - s_cum[s]) : 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) uacc[i][j] *= w;
-      }
-    }
-    __syncthreads();
-    if (tid < kTile && s0 + tid < L) {
-      const float v = expf(cum_q - s_cum[s0 + tid]) * row_partials(N / 4);
-      s_v[s0 + tid] = v;
-      s_dcum[s0 + tid] -= v;
-    }
-    for (int tt = st; tt < n_tiles; ++tt) {
-      const int t0 = tt * kTile;
-      const int kt = round_up(min(kTile, L - t0), 4);
-      __syncthreads();
-      stage_bc(s_c, csrc, t0, false);
-      stage_dy(t0);
-      __syncthreads();
-      masked_tiles(t0, s0);
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int m = tid + r * kThreads;
-        if (m < n_n) {
-          const int rg = m % 16, cg = m / 16;
-          mm(bacc[r], s_dcb + rg * 4, 1, kLdT, s_c + cg * 4, ldn, 1, kt);
-        }
-      }
-      if (tid < n_p) {
-        const int rg = tid % 16, cg = tid / 16;
-        mm(uacc, s_m + rg * 4, 1, kLdT, s_dy + cg * 4, ldp, 1, kt);
-      }
-      if (tid < kTile) {
-        float sum = 0.f;
-        for (int k = 0; k < kt; ++k) sum += s_dseg[k * kLdT + tid];
-        s_dcum[s0 + tid] -= sum;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int m = tid + r * kThreads;
-      if (m >= n_n) continue;
-      const int rg = m % 16, cg = m / 16;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int s = s0 + rg * 4 + i;
-        if (s < L)
-          *reinterpret_cast<float4*>(p.dbh + at_h(s, cg * 4)) =
-              make_float4(bacc[r][i][0], bacc[r][i][1], bacc[r][i][2], bacc[r][i][3]);
-      }
-    }
-    __syncthreads();  // the column sums are done with s_part's rows
-    if (tid < n_p) {  // dx = du dt, and du . x per row
-      const int rg = tid % 16, cg = tid / 16;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int sl = rg * 4 + i, s = s0 + sl;
-        float sp = 0.f;
-        if (s < L) {
-          const float dts = s_dt[s];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const size_t at = at_x(s, cg * 4 + j);
-            sp = fmaf(uacc[i][j], widen(x[at]), sp);
-            dx[at] = narrow<T>(uacc[i][j] * dts);
+        for (int i = 0; i < 4; ++i) {
+          const int t = t0 + rg + 8 * i;
+          if (t >= L) continue;
+          float* dst = p.dch + at_h(t, 4 * cg);
+          if (!fresh) {
+            const float4 o = ld4(dst);
+            z[i][0] += o.x, z[i][1] += o.y, z[i][2] += o.z, z[i][3] += o.w;
           }
+          st4(dst, z[i]);
         }
-        s_part[sl * kPartCols + cg] = sp;
+      }
+      cp_async_wait_all();
+      __syncthreads();  // M, dM o dec are consumed; the next t tile is in
+    }
+
+    // the column sums of dseg into dcum_s: one owner lane a column
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      colp[j] = warp_sum(colp[j], 1, 8);
+      const int s = s0 + tx + 16 * j;
+      if (!dyu_half && ty == 0 && s < L) s_dcum[s] -= colp[j];
+    }
+    // dB_s; dx = du dt and du . x per row
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n0 = 4 * (lq + 16 * r);
+      if (n0 >= N) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int s = s0 + 4 * sg + i;
+        if (s < L) st4(p.dbh + at_h(s, n0), bacc[r][i]);
       }
     }
-    __syncthreads();
-    if (tid < kTile && s0 + tid < L) s_dux[s0 + tid] = row_partials(P / 4);
+    float dux[4] = {0.f, 0.f, 0.f, 0.f};
+    if (lq < pq) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int s = s0 + 4 * sg + i;
+        if (s >= L) continue;
+        const size_t at = at_x(s, 4 * lq);
+        dux[i] = dot4(widen4(*reinterpret_cast<const V4*>(x + at)), uacc[i]);
+        const float dts = s_dt[s];
+        const float o[4] = {uacc[i][0] * dts, uacc[i][1] * dts, uacc[i][2] * dts,
+                            uacc[i][3] * dts};
+        narrow4<T>(dx + at, o);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float sum = warp_sum(dux[i], 1, 16);
+      const int s = s0 + 4 * sg + i;
+      if (lq == 0 && s < L) s_dux[s] = sum;
+    }
   }
 
-  // ---- 6. dla = reverse cumsum of dcum; ddt, da_log's partial
-  __syncthreads();
-  if (tid == 0) {
-    float sum = s_dq;
-    for (int s = 0; s < L; ++s) sum += s_v[s];
-    s_dcum[L - 1] += sum;
-  }
+  // ---- 5. dla = reverse cumsum of dcum; ddt, da_log's partial
+  float vsum = 0.f;
+  for (int t = tid; t < L; t += kThreads) vsum += s_v[t];
+  vsum = block_sum(vsum);  // syncs: every dcum row is final
+  if (tid == 0) s_dcum[L - 1] += dq + vsum;
   __syncthreads();
   if (tid < 32) {  // inclusive suffix scan by warp 0, 32 rows at a time from the end
-    const int lane = tid;
     float carry = 0.f;
     for (int base = (L - 1) / 32 * 32; base >= 0; base -= 32) {
       const int t = base + lane;
@@ -603,12 +865,13 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_scan_bwd_kernel(const Params 
     }
   }
   __syncthreads();
-  for (int t = tid; t < L; t += kThreads) p.ddt[(row0 + t) * p.H + hd] = s_dux[t] - A * s_dcum[t];
-  if (tid == 0) {
-    float sum = 0.f;
-    for (int t = 0; t < L; ++t) sum = fmaf(s_dt[t], s_dcum[t], sum);
-    p.da_part[(size_t(ci) * p.B + bi) * p.H + hd] = -A * sum;
+  float da = 0.f;
+  for (int t = tid; t < L; t += kThreads) {
+    p.ddt[(row0 + t) * p.H + hd] = s_dux[t] - A * s_dcum[t];
+    da = fmaf(s_dt[t], s_dcum[t], da);
   }
+  da = block_sum(da);
+  if (tid == 0) p.da_part[(size_t(ci) * p.B + bi) * p.H + hd] = -A * da;
 }
 
 template <typename T>
@@ -617,6 +880,9 @@ int launch(const Params& p, int blocks, cudaStream_t stream) {
   auto kernel = ssd_scan_bwd_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(bytes));
+  if (err == cudaSuccess)  // the whole of L1 as shared memory, so two blocks fit an SM
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               int(cudaSharedmemCarveoutMaxShared));
   if (err != cudaSuccess) return int(err);
   kernel<<<blocks, kThreads, bytes, stream>>>(p);
   return int(cudaGetLastError());
@@ -638,9 +904,9 @@ long long ssd_scan_bwd_smem_bytes(int N, int P, int Q) {
 // all float32.  Out: dx (x's dtype), ddt (B, S, H), da_part (nc, B, H), dbh
 // and dch (B, S, H, N), float32; dstates (B, nc, H, N, P) float32 scratch;
 // counters: 1 + B H int32 zeros, left zero.  N % 4 == 0, N <= 128; P % 4 ==
-// 0, P <= 64; H % G == 0.  The state arrays, dbh and dch are read or written
-// four floats a access: 16-byte aligned.  Returns a cudaError_t (0 on
-// success).
+// 0, P <= 64; H % G == 0.  Every array but dt, a_log, ddt, da_part and the
+// counters is read or written four elements an access: 16-byte aligned.
+// Returns a cudaError_t (0 on success).
 int ssd_scan_bwd(const void* x, const float* dt, const float* a_log, const void* b,
                  const void* c, int in_bf16, const float* dy, const float* dh_prev,
                  const float* dh_final, const float* h_prev, void* dx, float* ddt,
@@ -648,9 +914,12 @@ int ssd_scan_bwd(const void* x, const float* dt, const float* a_log, const void*
                  int S, int H, int P, int G, int N, int Q, int split, void* stream) {
   if (B < 1 || S < 1 || H < 1 || G < 1 || H % G || N < 4 || N % 4 || N > kMaxN || P < 4 ||
       P % 4 || P > kMaxP || Q < 1 || counters == nullptr || (split && dh_prev == nullptr) ||
-      (reinterpret_cast<uintptr_t>(dh_final) | reinterpret_cast<uintptr_t>(h_prev) |
-       reinterpret_cast<uintptr_t>(dbh) | reinterpret_cast<uintptr_t>(dch) |
-       reinterpret_cast<uintptr_t>(dstates) | reinterpret_cast<uintptr_t>(dh_prev)) % 16)
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(b) |
+       reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(dy) |
+       reinterpret_cast<uintptr_t>(dx) | reinterpret_cast<uintptr_t>(dh_final) |
+       reinterpret_cast<uintptr_t>(h_prev) | reinterpret_cast<uintptr_t>(dbh) |
+       reinterpret_cast<uintptr_t>(dch) | reinterpret_cast<uintptr_t>(dstates) |
+       reinterpret_cast<uintptr_t>(dh_prev)) % 16)
     return int(cudaErrorInvalidValue);
   const long long blocks = (long long)((S + Q - 1) / Q) * B * H;
   if (blocks > 2147483647LL) return int(cudaErrorInvalidConfiguration);

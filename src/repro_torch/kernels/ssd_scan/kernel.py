@@ -23,8 +23,10 @@ PyTorch's current stream and counts the launch on ``SSD`` (the backward
 on ``SSD_BWD``).  The kernel runs one block per (chunk, batch, head, slice
 of P) (``ssd_launch_plan``) and joins the state across chunks inside the
 launch, through per-stream counters that it leaves zero: one call is one
-launch.  The backward runs one block per (chunk, batch, head), last chunk
-first, and joins the state gradient across chunks the same way.
+launch.  The backward runs one block per (chunk, batch, head), two an SM,
+last chunk first, and joins the state gradient across chunks the same way;
+it computes each masked tile of the lower triangle once, per 64-row s tile
+and 32-row t tile (``BWD_S_TILE``, ``BWD_T_TILE``).
 """
 from __future__ import annotations
 
@@ -58,8 +60,12 @@ TILE = 64                    # kTile: rows of a staged B or C tile
 MAX_N = 128                  # kMaxN: the d_state the kernel takes
 MAX_STATE_TILE = 8192        # kMaxStateTile: N x p_block at most
 P_BLOCKS = (64, 32, 16)      # columns of P a block, widest first
-BWD_MAX_P = 64               # kMaxP in ssd_scan_bwd.cu: the head_dim the backward takes
-BWD_PART_COLS = MAX_N // 4   # kPartCols: per-row partials of a block
+BWD_THREADS = 256            # kThreads in ssd_scan_bwd.cu
+BWD_S_TILE = 64              # kS: rows of an s tile (B_s, u_s; dB_s and du_s in registers)
+BWD_T_TILE = 32              # kT: rows of a t tile (C_t, dy_t)
+BWD_MAX_P = 64               # kMaxP: the head_dim the backward takes
+BWD_LD_M = BWD_S_TILE + 4    # kLdM: leading dimension of the M and dM o dec tiles
+BWD_PARTS = 256              # kParts: per-warp partials of the row sums into dcum
 
 
 class SsdPlan(NamedTuple):
@@ -84,12 +90,15 @@ def ssd_smem_bytes(N: int, chunk: int, p_block: int) -> int:
 
 def ssd_bwd_smem_bytes(N: int, P: int, chunk: int) -> int:
     """A backward block's dynamic shared memory (``smem_floats`` in
-    ssd_scan_bwd.cu): the C and B tiles, the dy and x dt tiles, three 64 x
-    64 tiles, h_c or D, five per-row arrays, the per-row partials and one
-    float a thread."""
-    rows = math.ceil(chunk / TILE) * TILE
-    return 4 * (2 * TILE * (N + 1) + 2 * TILE * (P + 1) + 3 * TILE * (TILE + 1)
-                + N * (P + 1) + 5 * rows + TILE * BWD_PART_COLS + THREADS)
+    ssd_scan_bwd.cu): the s region (B_s and x dt rows of an s tile, or h_c^T
+    in the readout pass), the t region (C_t and dy_t rows of a t tile, M and
+    dM o dec, or D or D^T for the state terms), five per-row arrays and the
+    partials."""
+    ldn, ldp = N + 4, P + 4
+    region_s = max(BWD_S_TILE * (ldn + ldp), P * ldn)
+    region_t = max(BWD_T_TILE * (ldn + ldp + 2 * BWD_LD_M), N * ldp, P * ldn)
+    rows = math.ceil(chunk / BWD_S_TILE) * BWD_S_TILE
+    return 4 * (region_s + region_t + 5 * rows + BWD_PARTS)
 
 
 @lru_cache(maxsize=256)
@@ -257,6 +266,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torc
             raise TypeError(f"{name} must be float32, got {t.dtype}")
     x, dt, a_log, b, c, h_prev, dy, dh_final = (
         t.contiguous() for t in (x, dt, a_log, b, c, h_prev, dy, dh_final))
+    # the kernel reads x, b, c and dy four elements a load: a view at an odd offset is copied
+    x, b, c, dy = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, b, c, dy))
     dh_prev = dh_prev.contiguous() if split else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     f32 = dict(dtype=torch.float32, device=dev)

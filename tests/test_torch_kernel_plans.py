@@ -164,6 +164,8 @@ GATHER_SHAPES += [(g, 4, k, n) for g in (1, 2) for t in (512, 640, 24)
 GATHER_SHAPES += [(1, 64, 256, 16), (1, 64, 16, 256), (1, 2400, 256, 600), (1, 2400, 600, 256),
                   (1, 8192, 256, 16384), (1, 8192, 16384, 256)]
 SM90_SMEM_PER_BLOCK = 227 * 1024
+SM90_SMEM_PER_SM = 228 * 1024          # an SM's shared memory, of which each block's
+SM90_SMEM_RESERVED_PER_BLOCK = 1024    # launch reserves 1 KB (CUDA C++ Programming Guide)
 
 
 @pytest.mark.parametrize("int16", [True, False])
@@ -354,19 +356,24 @@ def test_ssd_constants_match_the_source():
 
 
 def test_ssd_bwd_constants_and_shared_memory_match_the_source():
-    """The backward's limits are the source's, and a block's shared memory
-    fits at both models' widths (mamba2-370m: N 128, P 64; zamba2-1.2b: N
-    64, P 64; chunk 256) and at the largest the kernel takes."""
+    """The backward's limits and tiles are the source's, and two blocks'
+    shared memory fits an SM at both models' widths (mamba2-370m: N 128, P
+    64; zamba2-1.2b: N 64, P 64; chunk 256) and at the largest the kernel
+    takes, as ``__launch_bounds__(kThreads, 2)`` asks."""
     text = skernel.LIBRARY_BWD.source.read_text()
     consts = dict(re.findall(r"constexpr int (k\w+) = ([^;/]+);", text))
-    assert int(consts["kThreads"]) == skernel.THREADS
-    assert int(consts["kTile"]) == skernel.TILE
+    assert int(consts["kThreads"]) == skernel.BWD_THREADS
+    assert int(consts["kS"]) == skernel.BWD_S_TILE
+    assert int(consts["kT"]) == skernel.BWD_T_TILE
     assert int(consts["kMaxN"]) == skernel.MAX_N
     assert int(consts["kMaxP"]) == skernel.BWD_MAX_P
-    assert "constexpr int kPartCols = kMaxN / 4;" in text
+    assert int(consts["kParts"]) == skernel.BWD_PARTS
+    assert "constexpr int kLdM = kS + 4;" in text
+    assert "__launch_bounds__(kThreads, 2)" in text
     for n, p in ((128, 64), (64, 64), (skernel.MAX_N, skernel.BWD_MAX_P)):
-        assert skernel.ssd_bwd_smem_bytes(n, p, 256) <= SM90_SMEM_PER_BLOCK
-    assert skernel.ssd_bwd_smem_bytes(128, 64, 256) == 196864
+        assert 2 * (skernel.ssd_bwd_smem_bytes(n, p, 256) + SM90_SMEM_RESERVED_PER_BLOCK) \
+            <= SM90_SMEM_PER_SM
+    assert skernel.ssd_bwd_smem_bytes(128, 64, 256) == 100352
 
 
 def _inject_plan(G, M, D, T, P, bm=None, border=8):

@@ -16,7 +16,9 @@ With the model's dt a chunk decays the state to 0, which hides the reverse
 join across chunks; inputs with dt scaled per head (a chunk decays the
 state by exp(-0.5)) make the join's share of each gradient
 (``ssd_carried_grads``) exceed that tolerance a hundredfold, and a copy of
-the source that drops the join must fail there.
+the source that drops the join must fail there; a copy whose merged pass
+leaves out the dB of the pairs past the diagonal tiles must fail with the
+model's dt.
 """
 import ctypes
 import math
@@ -111,11 +113,20 @@ def test_ssd_bwd_join_is_visible_with_scaled_dt(cuda, split):
         assert ratio >= 100.0, (name, ratio)
 
 
+# name: (a line of the source, its planted replacement, the inputs that must
+# show it): the reverse join dropped or halved (only the carry inputs carry a
+# state across chunks); the merged pass's dB without the pairs whose t tile
+# lies past the s tile (their rows meet at t - s = 1, so the model's dt
+# shows it)
+_DB_OFF_DIAGONAL = ("if (4 * (lq + 16 * r) < N) "
+                    "outer(bacc[r], a_dm, ld4(s_c + k * ldn + 4 * (lq + 16 * r)));")
 PLANTS = {
     "drop_join": ("gv[j] = racc[r][i][j] + decay_q * dv[j] + pv[j];",
-                  "gv[j] = racc[r][i][j] + pv[j];"),
+                  "gv[j] = racc[r][i][j] + pv[j];", True),
     "half_join": ("gv[j] = racc[r][i][j] + decay_q * dv[j] + pv[j];",
-                  "gv[j] = racc[r][i][j] + 0.5f * decay_q * dv[j] + pv[j];"),
+                  "gv[j] = racc[r][i][j] + 0.5f * decay_q * dv[j] + pv[j];", True),
+    "drop_db_off_diagonal": (_DB_OFF_DIAGONAL, _DB_OFF_DIAGONAL.replace(
+        "if (4 * (lq + 16 * r) < N)", "if (4 * (lq + 16 * r) < N && t0 < s0 + kS)"), False),
 }
 
 
@@ -126,7 +137,7 @@ def bwd_plants(tmp_path_factory):
     src = skernel.LIBRARY_BWD.source.read_text()
     root = tmp_path_factory.mktemp("ssd_bwd_plants")
     libs = {}
-    for name, (old, new) in PLANTS.items():
+    for name, (old, new, _) in PLANTS.items():
         assert src.count(old) == 1, name
         path = root / f"ssd_scan_bwd_{name}.cu"
         path.write_text(src.replace(old, new))
@@ -143,9 +154,10 @@ def bwd_plants(tmp_path_factory):
 def test_ssd_bwd_check_fails_a_planted_fault(cuda, bwd_plants, monkeypatch, capsys, plant):
     monkeypatch.setattr(skernel, "SSD_BWD", CudaKernel("ssd_scan_bwd", bwd_plants[plant],
                                                        "ssd_scan_bwd", skernel.SSD_BWD.argtypes))
+    carry = PLANTS[plant][2]
     worst = []
     for split in (False, True):
-        args, grads = _inputs(1, 1024, 32, 64, 128, 1, torch.bfloat16, cuda, 256, True, split)
+        args, grads = _inputs(1, 1024, 32, 64, 128, 1, torch.bfloat16, cuda, 256, carry, split)
         got = _kernel_grads(args, grads, 256, split)
         want = _plain_grads(args, grads, 256, split)
         rtol = sref.ssd_grad_rtol(args[1], args[2], 256)

@@ -44,7 +44,13 @@ Phases (any failure raises, and the run exits non-zero):
    training shape 2 x 1024), with the model's dt and with dt scaled so
    that the gradient the reverse join carries across chunks exceeds the
    tolerance a hundredfold; event and device ms beside the forward's at
-   the same shape (``ssd_bwd_kernel_rows``);
+   the same shape (``ssd_bwd_kernel_rows``); the grouped gather and replay
+   kernels at moonshot-v1-16b-a3b's expert sites (64 experts; C = 6, 12
+   and 96 capacity rows: a decode token's dispatch, 2 tokens, a 16-token
+   prefill; (2048, 1408) and (1408, 2048)) at border 8 and 14, the gather
+   bit for bit against its plain version and the replay against the
+   gather on every expert and against its plain version on 2
+   (``moe_expert_kernel_rows``);
 2b. A/B, with ``--parent`` (a tree of the parent commit, for example
    ``git archive`` unpacked under ``build/``): the gather kernels (border
    8) at the gemma-2b and mamba2-370m rank-0 paths' shapes, the low-rank
@@ -64,8 +70,12 @@ Phases (any failure raises, and the run exits non-zero):
    and amr_inject, reduced mamba2-370m under exact (SSD kernel in full
    mode) and amr_kernel rank 0 (split mode), and reduced gemma3-1b under
    rank 0 and amr_inject (one more prompt, of 11 tokens, past its window
-   of 8), and reduced zamba2-1.2b under exact and rank 0: tokens equal,
-   logits within 1e-3 * max|logit|;
+   of 8), reduced zamba2-1.2b under exact and rank 0, and reduced
+   dbrx-132b and moonshot-v1-16b-a3b under exact and rank 0 in both MoE
+   dispatch forms (replicate: the experts through the numerics; local:
+   exact experts): tokens equal, logits within 1e-3 * max|logit|; and on
+   the card reduced dbrx-132b (replicate) under amr_inject gives its rank-0
+   tokens and logits bit for bit;
 4. attn_fused — the fused AMR attention op (``kernels/attn_fused``), which
    no served step dispatches (the models run the unfused seam, as the JAX
    package's do), at gemma-2b's attention width (8 heads, 1 KV head,
@@ -92,7 +102,11 @@ Phases (any failure raises, and the run exits non-zero):
    ``AMRNumerics("amr_kernel", border=8)`` at rank 0 and at rank 8 (4
    requests, 2 slots, prompt 16, 8 new tokens) and under
    ``AMRNumerics("amr_inject", border=8)`` (2 requests, 2 slots, prompt
-   16, 4 new tokens).  Then full-width mamba2-370m (48 layers, d_model
+   16, 4 new tokens) and under ``AMRNumerics("amr_noise", border=8)`` (4 x
+   8: no hand kernel; before it, the draw's standardized error at a
+   gemma-2b decode site and a moonshot expert site within 5 standard
+   errors of ``lut.error_stats(8)``'s moments, ``noise_moments``).  Then
+   full-width mamba2-370m (48 layers, d_model
    1024, 32 SSM heads, d_state 128, vocab 50280, random weights from seed
    0) under rank 0 (4 requests x 8 tokens) and amr_inject (2 x 4).  Launch
    counts are set to 0 just before each run and read just after: for
@@ -104,8 +118,8 @@ Phases (any failure raises, and the run exits non-zero):
    kernels never;
 6. batched vs solo — request 0 served alone (1 slot) gives the same tokens
    and the same logits, bit for bit, as in the batched run: gemma-2b at
-   rank 0, rank 8 and under amr_inject, mamba2-370m at rank 0 and under
-   amr_inject;
+   rank 0, rank 8 and under amr_inject and amr_noise, mamba2-370m at rank
+   0 and under amr_inject;
 7. profile — one more run of 2 requests at rank 0, at rank 8 and under
    amr_inject for gemma-2b, and at rank 0 for mamba2-370m, under
    ``torch.profiler``: device time by kernel and by kernel family (every
@@ -131,6 +145,20 @@ Phases (any failure raises, and the run exits non-zero):
    kernel with the SSD kernel and no other, the SSD kernel 36 times per
    prefill and never in decode; batched vs solo bit for bit in each; a
    profile at rank 0;
+8c. moonshot-v1-16b-a3b — full width (48 layers, d_model 2048, 16 heads
+   of 128, 64 experts top-6, d_ff_expert 1408, vocab 163840, untied head;
+   28.05 G random bf16 parameters from seed 0, drawn a layer at a time,
+   after every earlier model is freed) through ``ServeEngine``, 2 slots,
+   16-token prompts: as registered (``dispatch_shard="local"``: exact
+   expert products) at rank 0 and rank 8 (4 x 8), the attention sites on
+   the gathers or the low-rank kernel and the experts on no hand kernel;
+   in the replicate form (the ``MoEConfig`` default: every expert site one
+   grouped AMR product) at rank 0 (4 x 8: the grouped gather at each
+   expert site, three a layer per dispatch, one dispatch a prefill and one
+   a slot and step; the counts checked exactly, ``_moe_launches``) and
+   under amr_inject (2 requests of 4 tokens, 2 new: the replay kernel
+   only); batched vs solo bit for bit in each; rank 0 of each form
+   profiled; prefill and decode seconds, ms per decode step, peak memory;
 9. train — (a) reduced amr-paper-100m in float32 trained on the card
    (kernels) and on the CPU (plain versions) from the same weights on the
    same ``SyntheticLM`` batches under its four training policies
@@ -147,14 +175,16 @@ Phases (any failure raises, and the run exits non-zero):
    rule on the CPU; (b) full-width
    amr-paper-100m (12 layers, d_model 768, vocab 32000) at batch 8, seq 256
    under the four policies, and full-width gemma3-1b at rank 8, batch 2, seq
-   512, remat "block" and "none": a warm step and 3 timed ones, launch
+   512, remat "block" and "none" (and amr-paper-100m under amr_noise, which
+   launches no hand kernel): a warm step and 3 timed ones, launch
    counts set to 0 before and read after (rank 0 the two gathers, rank 8 the
    low-rank kernel, amr_inject the replay kernel, amr_lowrank none; each a
    step one forward's count, twice under "block"), finite losses and
    gradient norms, ms per step, tokens/s, peak memory and the idle share of
    one profiled step; (c) ``FaultTolerantLoop`` on full-width amr-paper-100m
-   under amr_inject, 4 steps straight and 2 + a raised failure + a restore
-   + 2: the float32 losses and every leaf of the final state bit for bit;
+   under amr_inject and under amr_noise (its draws follow the restored
+   step), 4 steps straight and 2 + a raised failure + a restore + 2: the
+   float32 losses and every leaf of the final state bit for bit;
    and for the SSM and hybrid families: (a) reduced mamba2-370m and
    zamba2-1.2b in float32, card vs CPU, under exact and rank 0 (loss 1e-4
    relative, each gradient leaf within 1e-3 of its max, the unread leaves
@@ -223,6 +253,9 @@ G3_CHUNKED_S = 16384               # gemma3-1b's chunked prefill: 8 query blocks
 TRANSPOSE_OPS = 5 * 16 * 6  # 32x32 bit transpose: 5 levels x 16 word pairs x 6 ops
 PLAIN_REPLAY_PAIRS = 1 << 24  # the plain replay's chunk on the card (memory knob only)
 GATHERS = {"amr_matmul_int8_lut", "amr_matmul_int8_lut_grouped"}
+MOE_EXPERT_M = (6, 12, 96)  # C at top-6: a decode token, 2 tokens, a 16-token prompt
+MOON_INJECT_PROMPT, MOON_INJECT_GEN = 4, 2  # moonshot's amr_inject run: 2 requests of these
+NOISE_SIGMAS = 5.0  # the amr_noise moment gate: mean 0 and std 1 within 5 standard errors
 
 
 def log(msg: str) -> None:
@@ -527,8 +560,11 @@ def phase_kernels(device, cfg, mamba_cfg, g3_cfg, zamba_cfg) -> dict:
     rows["ssd"] = ssd_kernel_rows(device, mamba_cfg)
     rows["ssd_bwd"] = ssd_bwd_kernel_rows(device, mamba_cfg, zamba_cfg)
     rows["train_shapes"] = training_kernel_rows(device, int_rate)
+    from repro_torch.configs import moonshot_16b_a3b
+
+    rows["moe_expert"] = moe_expert_kernel_rows(device, moonshot_16b_a3b.CONFIG, int_rate)
     for name, rs in rows.items():
-        if name == "train_shapes":
+        if name in ("train_shapes", "moe_expert"):
             continue
         for r in rs:
             log(f"[kernel] {name} " + json.dumps(r))
@@ -676,6 +712,78 @@ def replay_kernel_rows(device, dense_m, dense_kn, grouped, int_rate) -> list[dic
                 device_ms=device_ms(rkernel.inject_replay_int32, args, 10),
                 plain_ms=time_ms(lambda *a: rref.replay_matmul_ref(
                     *a, max_pairs=PLAIN_REPLAY_PAIRS), [(inj, ia, ib)], 1)))
+    return out
+
+
+def moe_expert_kernel_rows(device, cfg, int_rate) -> list[dict]:
+    """The grouped gather and replay kernels at moonshot-v1-16b-a3b's expert
+    sites (G = 64 experts; M = C, the capacity rows of one dispatch:
+    ``MOE_EXPERT_M``; (K, N) of w_gate / w_up and of w_down), border 8 and 14:
+    the gather bit for bit against its plain version on every group, the
+    replay bit for bit against the gather kernel on every group and against
+    its plain version on the first 2 groups (on the card the plain replay
+    takes about 0.76 s for 2 groups at C = 96, so 24 s for all 64; every
+    group runs the same code); event and device ms, the plain versions' ms
+    (``plain_groups``: over how many groups), the bound."""
+    import torch
+
+    from repro_torch.core import engine, lut
+    from repro_torch.kernels.amr_matmul import kernel, ops, ref
+    from repro_torch.kernels.inject_replay import kernel as rkernel
+    from repro_torch.kernels.inject_replay import ref as rref
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    G, D, F = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
+    sub = 2
+    out = []
+    for border in (8, 14):
+        table, table32 = ops.kernel_table(border, device), lut.table_tensor(border, device)
+        inj = engine.get_injector(2, border)
+        for k, n in ((D, F), (F, D)):
+            b = _int8((G, k, n), gen, device)
+            ib = b.to(torch.int32) + 128
+            for m in MOE_EXPERT_M:
+                a = _int8((G, m, k), gen, device)
+                ia = a.to(torch.int32) + 128
+                before = (kernel.LUT_GROUPED.launches, rkernel.REPLAY.launches)
+                got = kernel.amr_matmul_int8_lut_grouped(a, b, table)
+                rep = rkernel.inject_replay_int32(inj, ia, ib)
+                want = ref.lut_matmul_ref(a, b, table32)
+                rep_plain = rref.replay_matmul_ref(inj, ia[:sub], ib[:sub],
+                                                   max_pairs=PLAIN_REPLAY_PAIRS)
+                torch.cuda.synchronize()
+                if (kernel.LUT_GROUPED.launches, rkernel.REPLAY.launches) != (before[0] + 1,
+                                                                             before[1] + 1):
+                    raise AssertionError("moe expert rows: not one launch a call")
+                if not torch.equal(got, want):
+                    raise AssertionError(f"grouped gather differs from plain at the expert "
+                                         f"shape {(G, m, k, n)}, border {border}")
+                if not torch.equal(rep, got) or not torch.equal(rep[:sub], rep_plain):
+                    raise AssertionError(f"replay kernel differs from the gather kernel or its "
+                                         f"plain version at the expert shape {(G, m, k, n)}, "
+                                         f"border {border}")
+                g_bytes = G * (m * k + k * n + 4 * m * n) + table.numel() * table.element_size()
+                g_ms, g_by = bound(g_bytes, 2 * G * m * n * k, int_rate)
+                out_words = G * m * math.ceil(n / 32)
+                r_ms, r_by = bound(4 * (ia.numel() + ib.numel() + G * m * n),
+                                   replay_ops(inj, out_words * k, out_words), int_rate)
+                gather_args, replay_args = [(a, b, table)], [(inj, ia, ib)]
+                for kind, fn, args, b_ms, b_by, plain in (
+                        ("gather", kernel.amr_matmul_int8_lut_grouped, gather_args, g_ms, g_by,
+                         lambda: time_ms(ref.lut_matmul_ref, [(a, b, table32)], 1)),
+                        ("replay", rkernel.inject_replay_int32, replay_args, r_ms, r_by,
+                         lambda: time_ms(lambda *x: rref.replay_matmul_ref(
+                             *x, max_pairs=PLAIN_REPLAY_PAIRS), [(inj, ia[:sub], ib[:sub])], 1))):
+                    reps = 10 if m < 96 else 3
+                    out.append(dict(kernel=kind, site="w_down" if k == F else "w_gate/w_up",
+                                    border=border, shape=(G, m, k, n), max_abs_err=0.0,
+                                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                                    ms=time_ms(fn, args, reps), device_ms=device_ms(fn, args, reps),
+                                    plain_ms=plain(), plain_groups=G if kind == "gather" else sub))
+                del a, ia, got, rep, want, rep_plain
+            del b, ib
+    for r in out:
+        log("[kernel] moe expert " + json.dumps(r))
     return out
 
 
@@ -1031,7 +1139,8 @@ def phase_reference(device) -> None:
     card's kernels against the CPU's plain versions.  gemma3-1b's window of
     8 tokens: one prompt of 11 rolls its ring in prefill, the others wrap it
     in decode."""
-    from repro_torch.configs import gemma3_1b, mamba2_370m, zamba2_1p2b
+    from repro_torch.configs import (dbrx_132b, gemma3_1b, mamba2_370m, moonshot_16b_a3b,
+                                     zamba2_1p2b)
     from repro_torch.configs.gemma_2b import reduced
     from repro_torch.kernels.ssd_scan import kernel as skernel
     from repro_torch.models import init_params
@@ -1048,6 +1157,14 @@ def phase_reference(device) -> None:
              (gemma3_1b.reduced(), AMRNumerics("amr_inject", border=BORDER)),
              (zamba2_1p2b.reduced(), AMRNumerics("exact")),
              (zamba2_1p2b.reduced(), AMRNumerics("amr_kernel", border=BORDER, rank=0))]
+    # the MoE family in both dispatch forms: the registered local one (exact
+    # experts) and the replicate one (experts through the numerics)
+    for moe_cfg in (dbrx_132b.reduced(), moonshot_16b_a3b.reduced()):
+        for form in ("replicate", "local"):
+            base = dataclasses.replace(moe_cfg, moe=dataclasses.replace(moe_cfg.moe,
+                                                                        dispatch_shard=form))
+            cases += [(base, AMRNumerics("exact")),
+                      (base, AMRNumerics("amr_kernel", border=BORDER, rank=0))]
     prompts = [(5, 9, 2, 7), (3, 11, 4, 1, 8, 6), (13, 2), (9, 7, 9, 1, 2)]
     for base, nm in cases:
         cfg = dataclasses.replace(base, dtype="float32", numerics=nm)
@@ -1072,9 +1189,41 @@ def phase_reference(device) -> None:
         if (cfg.ssm is not None) != (skernel.SSD.launches > 0):
             raise AssertionError(f"reduced {cfg.name} under {nm}: SSD kernel launched "
                                  f"{skernel.SSD.launches} times")
-        log(f"[reference] reduced {cfg.name} f32 {nm}: tokens equal, "
+        form = f" {cfg.moe.dispatch_shard} form" if cfg.moe is not None else ""
+        log(f"[reference] reduced {cfg.name}{form} f32 {nm}: tokens equal, "
             f"max |logit diff| card vs CPU {diff:.3g} (max |logit| {top:.3g}); SSD kernel "
             f"launches {skernel.SSD.launches}")
+        if cfg.moe is not None and cfg.moe.dispatch_shard == "replicate" and \
+                cfg.name == "dbrx-132b" and not nm.is_exact():
+            inject_equals_rank0(device, cfg, params, prompts, card)
+
+
+def inject_equals_rank0(device, cfg, params, prompts, rank0) -> None:
+    """Reduced dbrx-132b (float32, replicate form) on the card under
+    amr_inject: the replay kernel at every AMR site, the expert sites
+    grouped, gives the rank-0 run's (``rank0``: completions) tokens and
+    logits bit for bit (the same products of the same schedule; float32
+    inputs quantize alike under both quantizers)."""
+    from repro_torch.kernels.inject_replay import kernel as rkernel
+    from repro_torch.models.tree import tree_map
+    from repro_torch.numerics import AMRNumerics
+    from repro_torch.serve import Request, ServeEngine
+
+    c = dataclasses.replace(cfg, numerics=AMRNumerics("amr_inject", border=BORDER))
+    eng = ServeEngine(c, tree_map(lambda t: t.to(device), params), n_slots=2, capacity=24,
+                      record_logits=True, device=device)
+    for prompt in prompts:
+        eng.submit(Request(prompt=prompt, max_new_tokens=5))
+    before = rkernel.REPLAY.launches
+    done = eng.run()
+    same = all(a.tokens == b.tokens and all(np.array_equal(x, y) for x, y in
+                                            zip(a.logits, b.logits))
+               for a, b in zip(done, rank0))
+    if not same or rkernel.REPLAY.launches == before:
+        raise AssertionError(f"reduced {cfg.name} on the card: amr_inject differs from rank 0 "
+                             f"or launched no replay ({rkernel.REPLAY.launches - before})")
+    log(f"[reference] reduced {cfg.name} replicate form on the card: amr_inject == rank 0 bit "
+        f"for bit (tokens and logits), {rkernel.REPLAY.launches - before} replay launches")
 
 
 ATTN_LONG_PREFILL = {"lut": 1024, "inject": 256}  # S of the causal long prefills
@@ -1389,6 +1538,7 @@ class Run(NamedTuple):
     uses: set
     prompt_len: int = PROMPT_LEN
     capacity: int = CAPACITY
+    expect: object = None  # counts, prefills, decode steps -> the exact launch counts, or None
 
 
 def model_prompts(config, n_tokens: int) -> list[tuple]:
@@ -1463,6 +1613,11 @@ def serve_model(device, card: str, config, params, runs: dict, solo: tuple, prof
             if counts[name] != n * reqs:
                 raise AssertionError(f"{config.name} {label}: kernel {name} launched "
                                      f"{counts[name]} times in {reqs} prefills, not {n} each")
+        if run.expect is not None:
+            want = run.expect(reqs, eng.steps_done)
+            if any(counts[name] != n for name, n in want.items()):
+                raise AssertionError(f"{config.name} {label}: launches {counts}, expected "
+                                     f"{want} in {reqs} prefills and {eng.steps_done} steps")
         tokens = sum(len(c.tokens) for c in done)
         log(f"[serve] {config.name} {label} on {card}: {len(done)} requests, {tokens} tokens "
             f"in {wall:.3f}s ({tokens / wall:.2f} tok/s end to end); prefill "
@@ -1493,8 +1648,8 @@ def serve_model(device, card: str, config, params, runs: dict, solo: tuple, prof
 
 def phase_serve(device, card: str, gemma, gemma_params, mamba) -> dict:
     """Full-width gemma-2b (weights ``gemma_params``, emptied afterwards) at
-    rank 0, rank 8 and under amr_inject, and full-width mamba2-370m at rank
-    0 and under amr_inject."""
+    rank 0, rank 8, under amr_inject and under amr_noise (no hand kernel),
+    and full-width mamba2-370m at rank 0 and under amr_inject."""
     from repro_torch.numerics import AMRNumerics
 
     rank0 = AMRNumerics("amr_kernel", border=BORDER, rank=0)
@@ -1504,9 +1659,11 @@ def phase_serve(device, card: str, gemma, gemma_params, mamba) -> dict:
         f"rank {RANK}": Run(AMRNumerics("amr_kernel", border=BORDER, rank=RANK), REQUESTS, GEN,
                             {"amr_matmul_int8"}),
         "amr_inject": Run(inject, INJECT_REQUESTS, INJECT_GEN, {"inject_replay"}),
+        "amr_noise": Run(AMRNumerics("amr_noise", border=BORDER), REQUESTS, GEN, set()),
     }
     launches = {"gemma-2b": serve_model(device, card, gemma, gemma_params, gemma_runs,
-                                        tuple(gemma_runs), tuple(gemma_runs), {})}
+                                        tuple(gemma_runs), ("rank 0", f"rank {RANK}",
+                                                            "amr_inject"), {})}
     gemma_params.clear()  # free gemma-2b's weights: mamba2-370m's peak memory is its own
     mamba_runs = {
         "rank 0": Run(rank0, REQUESTS, GEN, GATHERS | {"ssd_scan"}),
@@ -1567,6 +1724,118 @@ def phase_zamba2(device, card: str, cfg) -> dict:
     launches = serve_model(device, card, cfg, params, runs, tuple(runs), ("rank 0",),
                            {"ssd_scan": n_ssm})
     params.clear()
+    return launches
+
+
+def noise_moments(device, card: str, gemma, moon) -> dict:
+    """The amr_noise draw on the card at two served shapes, border 8: a
+    gemma-2b decode site (2 x 2048 @ 2048 x 16384, a key batch of 2
+    requests) and a moonshot expert site (64 x 6 x 2048 @ 64 x 2048 x 1408,
+    one key): the standardized error (out / scales - exact - K mu) /
+    (sqrt(K) sigma) against ``lut.error_stats(8)`` must have mean 0 and
+    standard deviation 1 within NOISE_SIGMAS standard errors."""
+    import importlib
+
+    import torch
+
+    from repro_torch.core import lut
+
+    am = importlib.import_module("repro_torch.numerics.approx_matmul")
+    stats = lut.error_stats(BORDER)
+    gen = torch.Generator(device=device).manual_seed(3)
+    shapes = {"gemma-2b decode mlp.w_gate": ((2, 1, gemma.d_model), (gemma.d_model, gemma.d_ff),
+                                             (11, 12)),
+              "moonshot expert w_gate": ((moon.moe.n_experts, moon.moe.top_k, moon.d_model),
+                                         (moon.moe.n_experts, moon.d_model, moon.moe.d_ff_expert),
+                                         5)}
+    out = {}
+    for name, (ashape, bshape, key) in shapes.items():
+        a = torch.randn(ashape, generator=gen, device=device, dtype=torch.bfloat16)
+        b = torch.randn(bshape, generator=gen, device=device, dtype=torch.bfloat16)
+        with torch.inference_mode():
+            got = am.matmul_amr_noise(a, b, BORDER, key)
+            qa, sa = am.quantize_int8_ste(a, axis=-1)
+            qb, sb = am.quantize_int8_ste(b, axis=-2)
+            exact = torch.matmul(qa.double(), qb.double())
+            K = ashape[-1]
+            z = ((got.double() / (sa.double() * sb.double()) - exact - K * stats["mean"])
+                 / (math.sqrt(K) * stats["std"])).reshape(-1)
+        n = z.numel()
+        mean, std = float(z.mean()), float(z.std())
+        se_mean, se_std = 1 / math.sqrt(n), math.sqrt(1 / (2 * n))
+        out[name] = dict(n=n, mean=mean, std=std, mean_in_se=mean / se_mean,
+                         std_in_se=(std - 1) / se_std)
+        if abs(mean) > NOISE_SIGMAS * se_mean or abs(std - 1) > NOISE_SIGMAS * se_std:
+            raise AssertionError(f"amr_noise moments at {name}: {out[name]}")
+        log(f"[noise] {name} on {card}: {n} draws, standardized error mean {mean:.3g} "
+            f"({mean / se_mean:+.2f} SE), std {std:.5f} ({(std - 1) / se_std:+.2f} SE) against "
+            f"error_stats({BORDER}) mu {stats['mean']:.4f} sigma {stats['std']:.4f}")
+    return out
+
+
+def _moe_launches(cfg, dispatches_per_step: int):
+    """The gathers' launches a served run of ``cfg`` at rank 0 must make:
+    per prefill and per decode step 4 flat (wq, wk, wv, wo) and 2 grouped
+    (attn.qk, attn.pv) a layer, and in the replicate form 3 grouped a layer
+    for each dispatch (one a prefill; one a slot and step, the MoE layer
+    dispatching each request of a decode step alone)."""
+    L = cfg.n_layers
+    experts = cfg.moe.dispatch_shard != "local"
+
+    def expect(prefills: int, steps: int) -> dict:
+        grouped = 2 * L * (prefills + steps)
+        if experts:
+            grouped += 3 * L * (prefills + steps * dispatches_per_step)
+        return {"amr_matmul_int8_lut": 4 * L * (prefills + steps),
+                "amr_matmul_int8_lut_grouped": grouped}
+    return expect
+
+
+def phase_moonshot(device, card: str, cfg) -> dict:
+    """Phase 8c: full-width moonshot-v1-16b-a3b (48 layers, d_model 2048, 16
+    heads of 128, 64 experts top-6, d_ff_expert 1408, vocab 163840, untied
+    head; random bf16 weights from seed 0, 28.05 G parameters) through
+    ``ServeEngine``, 2 slots, 16-token prompts.  The registered form
+    (``dispatch_shard="local"``: exact expert products) at rank 0 and rank 8
+    (4 x 8): the attention sites launch the gathers or the low-rank kernel,
+    the experts nothing.  The replicate form (the ``MoEConfig`` default,
+    the experts through the numerics) at rank 0 (4 x 8: the grouped gather
+    at every expert site) and under amr_inject (2 requests of
+    MOON_INJECT_PROMPT tokens, MOON_INJECT_GEN new: the replay kernel
+    only).  Each run again with request 0 alone (the same bits); rank 0 of
+    each form under the profiler.  Returns each run's launch counts."""
+    import torch
+
+    from repro_torch.numerics import AMRNumerics
+
+    rank0 = AMRNumerics("amr_kernel", border=BORDER, rank=0)
+    replicate = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                                 dispatch_shard="replicate"))
+    torch.cuda.empty_cache()
+    params = model_params(device, cfg)
+    log(f"[serve] {cfg.name}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB of weights on "
+        f"the card")
+    launches = {}
+    registered = {
+        "local rank 0": Run(rank0, REQUESTS, GEN, GATHERS, expect=_moe_launches(cfg, SLOTS)),
+        f"local rank {RANK}": Run(AMRNumerics("amr_kernel", border=BORDER, rank=RANK), REQUESTS,
+                                  GEN, {"amr_matmul_int8"}),
+    }
+    launches.update(serve_model(device, card, cfg, params, registered, tuple(registered),
+                                ("local rank 0",), {}))
+    replicated = {
+        "replicate rank 0": Run(rank0, REQUESTS, GEN, GATHERS,
+                                expect=_moe_launches(replicate, SLOTS)),
+        "replicate amr_inject": Run(AMRNumerics("amr_inject", border=BORDER), INJECT_REQUESTS,
+                                    MOON_INJECT_GEN, {"inject_replay"}, MOON_INJECT_PROMPT,
+                                    MOON_INJECT_PROMPT + MOON_INJECT_GEN),
+    }
+    t0 = time.perf_counter()
+    launches.update(serve_model(device, card, replicate, params, replicated, tuple(replicated),
+                                ("replicate rank 0",), {}))
+    log(f"[serve] {cfg.name} replicate form: {time.perf_counter() - t0:.1f}s")
+    params.clear()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2036,6 +2305,9 @@ def phase_train_full(device, card: str) -> tuple[dict, dict]:
               f"rank {RANK}", {"amr_matmul_int8"} | ssd, MAMBA_TRAIN_BATCH, SSD_CONTEXT),
              (f"zamba2-1.2b rank {RANK}", dataclasses.replace(zamba2_1p2b.CONFIG, numerics=rank8),
               f"rank {RANK}", {"amr_matmul_int8"} | ssd, ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_SEQ)]
+    plan.insert(4, ("amr-paper-100m amr_noise", dataclasses.replace(
+        amr_paper.CONFIG, numerics=AMRNumerics("amr_noise", border=BORDER)), "amr_noise", set(),
+        TRAIN_BATCH, TRAIN_SEQ))
     per_step, totals = {}, {}
     for key, cfg, label, uses, batch, seq in plan:
         per_step[key], totals[key] = train_run(device, card, cfg, label, uses, batch, seq)
@@ -2054,6 +2326,10 @@ def phase_train_restart(device) -> None:
 
     restart_run(device, dataclasses.replace(
         amr_paper.CONFIG, numerics=AMRNumerics("amr_inject", border=BORDER)), "amr_inject",
+        2, TRAIN_SEQ)
+    # the draws follow the restored step: the same noise after the restore
+    restart_run(device, dataclasses.replace(
+        amr_paper.CONFIG, numerics=AMRNumerics("amr_noise", border=BORDER)), "amr_noise",
         2, TRAIN_SEQ)
     restart_run(device, dataclasses.replace(
         mamba2_370m.CONFIG, numerics=AMRNumerics("amr_kernel", border=BORDER, rank=0)),
@@ -2294,7 +2570,7 @@ def main(argv: list[str] | None = None) -> int:
     device = torch.device("cuda")
     t_start = time.perf_counter()
 
-    from repro_torch.configs import gemma3_1b, gemma_2b, mamba2_370m, zamba2_1p2b
+    from repro_torch.configs import gemma3_1b, gemma_2b, mamba2_370m, moonshot_16b_a3b, zamba2_1p2b
 
     phase_build()
     card = card_line()
@@ -2325,6 +2601,10 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.perf_counter()
     launches["zamba2-1.2b"] = phase_zamba2(device, card, zamba2_1p2b.CONFIG)
     log(f"[zamba2-1.2b] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    noise = noise_moments(device, card, gemma_2b.CONFIG, moonshot_16b_a3b.CONFIG)
+    launches["moonshot-v1-16b-a3b"] = phase_moonshot(device, card, moonshot_16b_a3b.CONFIG)
+    log(f"[moonshot-v1-16b-a3b] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_train_parity(device)
     phase_train_parity_ssm(device)
@@ -2388,12 +2668,15 @@ def main(argv: list[str] | None = None) -> int:
                                         for label, counts in launches["gemma3-1b"].items()},
                  "launches_zamba2_1p2b": {label: counts[k.name]
                                           for label, counts in launches["zamba2-1.2b"].items()},
+                 "launches_moonshot": {label: counts[k.name] for label, counts
+                                       in launches["moonshot-v1-16b-a3b"].items()},
                  "launches_per_train_step": {label: per_step.get(k.name, 0)
                                              for label, per_step in train.items()}}
         if model == "attn_fused":
             entry.update(unfused_ms=row["unfused_ms"], op_ms=row["op_ms"],
                          launches_in_served_runs=served[k.name])
         out.append(entry)
+    log("[noise] moments " + json.dumps(noise))
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)

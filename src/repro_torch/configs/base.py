@@ -1,7 +1,7 @@
 """Model architecture descriptor, mirroring the JAX package's ``configs/base.py``.
 
-Only the fields the ported paths (the dense decoder and the Mamba2 SSM
-family) read are kept; they carry
+Only the fields the ported paths (the dense decoder, the Mamba2 SSM and
+hybrid families, the MoE family) read are kept; they carry
 the JAX package's names and defaults so that a parity test can compare
 the two configs field by field.  ``numerics`` holds one ``AMRNumerics``
 design point for every matmul of the model, or a site- and layer-resolved
@@ -13,6 +13,20 @@ import dataclasses
 from typing import Any, Literal
 
 from repro_torch.numerics import AMRNumerics
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int          # per-expert hidden size
+    # the JAX package's dispatch-buffer strategy; the port runs two forms:
+    #   "replicate" — one sorted-capacity dispatch, the expert products
+    #                 through the numerics policy (``moe._moe_forward_global``)
+    #   "local"     — the JAX package's shard-local dispatch without a mesh:
+    #                 the same dispatch with exact expert products, the
+    #                 numerics ignored (``moe._moe_forward_local``)
+    dispatch_shard: str = "replicate"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +68,7 @@ class ModelConfig:
     rope_theta: float = 10000.0
     sliding_window: int = 0              # >0: width for 'swa' layers
     pattern: LayerPattern | None = None  # None -> homogeneous default_mixer
+    moe: MoEConfig | None = None         # set: an MoE layer in place of each MLP
     ssm: SSMConfig | None = None
     mlp_act: Literal["swiglu", "geglu", "gelu"] = "swiglu"
     tie_embeddings: bool = True
@@ -63,3 +78,8 @@ class ModelConfig:
     default_mixer: str = "full"
     # remat policy for training: 'none' | 'block' (recompute each layer in backward)
     remat: str = "block"
+
+    def layer_kinds(self) -> tuple[str, ...]:
+        if self.pattern is not None:
+            return self.pattern.kinds * self.pattern.n_repeat
+        return (self.default_mixer,) * self.n_layers

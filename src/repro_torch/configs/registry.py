@@ -11,6 +11,8 @@ _MODULES = {
     "gemma3-1b": "gemma3_1b",
     "mamba2-370m": "mamba2_370m",
     "zamba2-1.2b": "zamba2_1p2b",
+    "dbrx-132b": "dbrx_132b",
+    "moonshot-v1-16b-a3b": "moonshot_16b_a3b",
 }
 
 ARCH_NAMES = list(_MODULES)

@@ -4,10 +4,10 @@ The port of the JAX package's ``launch/cli.py``: ``--numerics --border
 --rank`` build one ``AMRNumerics``, and ``--policy-file`` loads a (possibly
 per-layer) policy file written by either package (``numerics.save_policy``),
 which wins over the uniform flags.  The mode choices come from the
-registry.  Left out: ``--inject-impl`` and ``--pallas-interpret`` (the
-tensor's device picks the route), ``--noise-seed`` and the multi-mode
-``--modes`` (``amr_noise`` and the multi-arm comparison scripts are not
-ported).
+registry; ``--noise-seed`` roots the ``amr_noise`` streams.  Left out:
+``--inject-impl`` and ``--pallas-interpret`` (the tensor's device picks the
+route) and the multi-mode ``--modes`` (the multi-arm comparison scripts are
+not ported).
 """
 from __future__ import annotations
 
@@ -27,6 +27,8 @@ def add_numerics_args(ap: argparse.ArgumentParser) -> None:
                    help="approximate border column for the AMR modes")
     g.add_argument("--rank", type=int, default=8,
                    help="low-rank error rank; 0 with amr_kernel = full-LUT kernel")
+    g.add_argument("--noise-seed", type=int, default=0,
+                   help="PRNG seed for the Gaussian-surrogate mode")
     g.add_argument("--policy-file", default=None, metavar="JSON",
                    help="load a (possibly per-layer) numerics policy file "
                         "(numerics.save_policy); overrides --numerics")
@@ -40,7 +42,8 @@ def numerics_from_args(args):
         return load_policy(args.policy_file)
     if args.numerics is None:
         return None
-    return AMRNumerics(args.numerics, border=args.border, rank=args.rank)
+    return AMRNumerics(args.numerics, border=args.border, rank=args.rank,
+                       noise_seed=args.noise_seed)
 
 
 def policy_label(nm) -> str:

@@ -8,6 +8,8 @@
       --numerics amr_kernel --rank 0
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --full \
       --numerics amr_kernel --rank 0 --heartbeat build/serve_heartbeat.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --full \
+      --numerics amr_kernel --rank 0 --slots 2 --requests 4 --prompt-len 16 --gen 8
 
 Thin CLI over ``repro_torch.serve.ServeEngine`` with random weights from
 ``--seed``.  ``--numerics`` overrides the config's matmul policy

@@ -1,5 +1,6 @@
 """Models of the port: layers, attention with a per-slot KV cache, the
-Mamba2 SSM mixer, the shared attention block, and the model entry points."""
+Mamba2 SSM mixer, the shared attention block, the MoE layer, and the model
+entry points."""
 from .model import decode_step, forward, group_structure, init_cache, init_params, \
     prefill_with_cache, unread_params
 

@@ -5,8 +5,9 @@ The JAX package's ``init_params`` tree, exported with
 ``jax.tree.map(np.asarray, params)``, has the same nesting, shapes and
 dtypes as the port's (``model.param_specs``), so both packages can compute
 on the same weights; the float32 leaves (norm scales, the SSM's ``a_log``,
-``dt_bias``, ``d_skip``) stay float32.  bfloat16 arrays arrive as ``ml_dtypes.bfloat16``
-numpy arrays, which torch cannot read directly; they are reinterpreted
+``dt_bias``, ``d_skip``, the MoE router) stay float32.  bfloat16 arrays
+arrive as ``ml_dtypes.bfloat16`` numpy arrays, which torch cannot read
+directly; they are reinterpreted
 through their 16-bit pattern.  This module never imports JAX.
 ``train_state_from_numpy`` does the same for a JAX ``TrainState``
 (params, AdamW ``mu``/``nu``/``master``/``count``, ``step``).

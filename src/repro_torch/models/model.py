@@ -1,7 +1,7 @@
-"""LM assembly for the dense, SSM and hybrid families: init, forward, prefill
-and decode.
+"""LM assembly for the dense, SSM, hybrid and MoE families: init, forward,
+prefill and decode.
 
-The port of the dense, Mamba2 and shared-attention parts of the JAX
+The port of the dense, Mamba2, shared-attention and MoE parts of the JAX
 package's ``models/model.py``.  The parameter tree keeps the JAX layout, so
 that both packages can compute on the same weights
 (``convert.params_from_numpy``):
@@ -11,6 +11,10 @@ that both packages can compute on the same weights
    "layers": ({"ln1", "ln2", "ssm": {...}},)                    # "ssm" layers
    "layers": ({"ln1", "ln2", "mlp": {...}},)                    # "shared_attn" layers
    "shared": {"attn": {...}, "ln1", "ln2", "mlp": {...}}}      # with "shared_attn" layers
+
+With ``cfg.moe`` set, an attention layer holds ``"moe": {"router", "w_gate",
+"w_up", "w_down"}`` in place of ``"mlp"`` (``models/moe.py``), and
+``forward`` returns the sum of the layers' load-balancing losses as its aux.
 
 A "swa" layer is a "full" one that attends within ``cfg.sliding_window``
 tokens; its decode cache is a ring of min(capacity, window) slots.  A
@@ -41,6 +45,7 @@ its kernel launches included.
 """
 from __future__ import annotations
 
+import math
 from functools import partial
 
 import torch
@@ -49,8 +54,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.numerics import current_scope, numerics_scope
+from repro_torch.numerics.context import HostOnce
 
 from . import attention as attn
+from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import embed, mlp, rms_norm, unembed
 from .tree import tree_items, tree_map
@@ -115,12 +122,17 @@ def param_specs(cfg: ModelConfig) -> dict:
     def norms(shape) -> dict:
         return {"ln1": (shape(D), f32, None), "ln2": (shape(D), f32, None)}
 
+    def ffn() -> dict:
+        if cfg.moe is not None:
+            return {"moe": moe_lib.moe_param_specs(D, cfg.moe, dt, stacked)}
+        return {"mlp": mlp_block(stacked)}
+
     def layer(kind: str) -> dict:
         if kind == "ssm":
             return {**norms(stacked), "ssm": ssm_lib.ssm_param_specs(D, cfg.ssm, dt, stacked)}
         if kind == "shared_attn":
             return {**norms(stacked), "mlp": mlp_block(stacked)}
-        return {**norms(stacked), "attn": attn_block(stacked), "mlp": mlp_block(stacked)}
+        return {**norms(stacked), "attn": attn_block(stacked), **ffn()}
 
     specs = {
         "embed": ((cfg.vocab, D), dt, D ** -0.5),
@@ -157,25 +169,39 @@ def _map_specs(fn, node):
     return tuple(_map_specs(fn, v) for v in node)
 
 
+_DRAW_BYTES = 1 << 32  # a leaf whose float32 draw is larger is drawn a slice at a time
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device: str | torch.device = "cuda") -> dict:
     """Random weights from a seeded ``torch.Generator`` on ``device``.
 
     Normal(0, std) per weight, drawn in float32 and cast to ``cfg.dtype``;
     norm scales start at zero; the SSM's ``a_log`` and ``d_skip`` take the
-    JAX package's fixed values.  The numbers differ from the JAX package's
+    JAX package's fixed values.  A leaf whose float32 draw passes 4 GiB
+    (moonshot-v1-16b-a3b's stacked experts: 35.4 GB each) is drawn one
+    leading slice at a time into its ``cfg.dtype`` tensor, so the float32
+    copy never exists whole.  The numbers differ from the JAX package's
     (another generator); ``convert.params_from_numpy`` carries the JAX
     package's weights over where both must compute on the same ones.
     """
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
+    def normal(shape, std, dtype):
+        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+        return w.mul_(std).to(dtype)
+
     def draw(shape, dtype, std):
         if std is None:
             return torch.zeros(shape, dtype=dtype, device=dev)
         if callable(std):
             return std(shape, dev).to(dtype)
-        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-        return w.mul_(std).to(dtype)
+        if 4 * math.prod(shape) <= _DRAW_BYTES:
+            return normal(shape, std, dtype)
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for i in range(shape[0]):
+            out[i] = normal(shape[1:], std, dtype)
+        return out
 
     return _map_specs(draw, param_specs(cfg))
 
@@ -208,41 +234,54 @@ def _head(cfg: ModelConfig, params: dict) -> torch.Tensor:
     return params["embed"] if cfg.tie_embeddings else params["lm_head"]
 
 
+def _ffn(cfg: ModelConfig, lp: dict, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The layer's MLP, or its MoE layer where ``cfg.moe`` is set: (output,
+    aux loss, None for an MLP)."""
+    if "moe" in lp:
+        return moe_lib.moe_forward(lp["moe"], h, cfg.moe, numerics=cfg.numerics)
+    return mlp(lp["mlp"], h, cfg.mlp_act, cfg.numerics), None
+
+
 def _layer_full(cfg: ModelConfig, kind: str, flat: int, step, lp: dict,
-                x: torch.Tensor) -> torch.Tensor:
+                x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One layer of the full-sequence forward, in its numerics scope (entered
-    here, so that a checkpointed layer's recompute runs in it too)."""
+    here, so that a checkpointed layer's recompute runs in it too): (x, the
+    layer's aux loss, None without an MoE layer)."""
     with numerics_scope(step=step, layer=flat, static_layer=flat):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if kind == "ssm":
             return x + ssm_lib.ssm_forward(lp["ssm"], h, cfg.d_model, cfg.ssm, cfg.numerics,
-                                           cfg.norm_eps)
+                                           cfg.norm_eps), None
         x = x + attn.attend_full(lp["attn"], h, **_attn_kwargs(cfg, kind))
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + mlp(lp["mlp"], h, cfg.mlp_act, cfg.numerics)
+        y, aux = _ffn(cfg, lp, h)
+        return x + y, aux
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             last_only: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward: tokens (B, S) -> (logits (B, S, V) (or (B, 1,
     V) with ``last_only``, sliced before the LM head), aux loss), as the JAX
-    package's; aux is a float32 0 for the dense and SSM families."""
+    package's; aux is the float32 sum of the layers' MoE load-balancing
+    losses, 0 without MoE layers."""
     kinds, n_repeat = group_structure(cfg)
     remat = cfg.remat == "block" and torch.is_grad_enabled()
     step = current_scope().step
     x = embed(params["embed"], tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(n_repeat):
         for i, kind in enumerate(kinds):
             body = partial(_layer_full, cfg, kind, g * len(kinds) + i, step)
             lp = _block_params(params, kind, i, g)
             if remat:
-                x = checkpoint(body, lp, x, use_reentrant=False, preserve_rng_state=False)
+                x, a = checkpoint(body, lp, x, use_reentrant=False, preserve_rng_state=False)
             else:
-                x = body(lp, x)
+                x, a = body(lp, x)
+            if a is not None:
+                aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if last_only:
         x = x[:, -1:, :]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(x, _head(cfg, params)), aux
 
 
@@ -305,6 +344,7 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor, cache: tupl
     """
     kinds, n_repeat = group_structure(cfg)
     pos = _cache_position(cache)
+    pos = None if pos is None else HostOnce(pos)  # read to the host once a step, if at all
     x = embed(params["embed"], token)
     per_group = []
     for g in range(n_repeat):
@@ -324,7 +364,7 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor, cache: tupl
                                           **_attn_kwargs(cfg, kind))
                 x = x + y
                 h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-                x = x + mlp(lp["mlp"], h, cfg.mlp_act, cfg.numerics)
+                x = x + _ffn(cfg, lp, h)[0]
             new.append(c)
         per_group.append(tuple(new))
     new_cache = tree_map(lambda *ls: torch.stack(ls), *per_group)
@@ -357,7 +397,7 @@ def prefill_with_cache(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                                            **_attn_kwargs(cfg, kind))
                 x = x + y
                 h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-                x = x + mlp(lp["mlp"], h, cfg.mlp_act, cfg.numerics)
+                x = x + _ffn(cfg, lp, h)[0]
             caches.append(c)
         per_group.append(tuple(caches))
     cache = tree_map(lambda *ls: torch.stack(ls), *per_group)

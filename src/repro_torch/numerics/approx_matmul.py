@@ -11,6 +11,11 @@ The port of the JAX package's ``numerics/approx_matmul.py``:
                 circuit: the hand-written kernel of kernels/inject_replay.
   amr_lowrank — C = (A@B + U(A)@V(B)) * scales with rank-r SVD factors of
                 the table's error, one float32 product over an augmented K.
+  amr_noise   — training-scale surrogate: the exact product of the int8
+                operands plus Gaussian error with the moments of the AMR
+                error table (``lut.error_stats``), drawn from a generator
+                seeded per call site, layer, step and unit
+                (``context.noise_key``).
   amr_kernel  — the hand-written CUDA kernels (kernels/amr_matmul): the
                 low-rank kernel at ``rank``, or the bit-exact full-table
                 gather kernel when ``rank == 0``.
@@ -22,14 +27,16 @@ and per column of B, so a batched call equals stacking the per-group calls.
 Dispatch goes through the mode registry (``numerics/registry.py``): each
 mode registers at the bottom of this module, in the JAX package's order,
 and ``AMRNumerics`` validates against the registry at construction;
-callers never compare mode names.  ``amr_noise`` is refused by name.
+callers never compare mode names.
 
 Training: ``amr_inject``, ``amr_lowrank`` and ``amr_kernel`` are
 ``torch.autograd.Function``s whose forward runs the mode on detached
 operands (the kernels on the card) and whose backward is the JAX
 package's straight-through surrogate, the full-precision matmul's
 gradient (``_lowrank_bwd``).  ``amr_lut`` differentiates through its
-scales alone, as the JAX package's hard quantizer does.  Without grad
+scales alone, as the JAX package's hard quantizer does, and ``amr_noise``
+by plain autograd through the straight-through quantizer and the exact
+product, as JAX differentiates ``matmul_amr_noise``.  Without grad
 (serving) the forward runs as it is, with no autograd node.
 
 Float products whose rows belong to different requests (the exact matmul
@@ -43,7 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from functools import partial
+from functools import lru_cache, partial
 
 import torch
 
@@ -51,7 +58,7 @@ from repro_torch.core import lut as lut_lib
 from repro_torch.kernels.amr_matmul.ref import lut_matmul_ref
 
 from . import registry
-from .context import current_scope
+from .context import current_scope, noise_key
 from .quant import quantize_int8, quantize_int8_ste
 
 
@@ -63,6 +70,7 @@ class AMRNumerics:
     mode: str = "exact"
     border: int = 8  # approximate border column (paper Table I/II)
     rank: int = 8    # low-rank error rank; 0 in amr_kernel selects the full-LUT kernel
+    noise_seed: int = 0  # amr_noise: the root of its PRNG keys (context.root_key)
     # amr_inject: handle of a registered custom schedule (DSE candidate) from
     # numerics.injection.register_schedule; None = the paper's schedule for
     # (n_digits=2, border).
@@ -277,6 +285,65 @@ def matmul_amr_inject(a: torch.Tensor, b: torch.Tensor, numerics: AMRNumerics) -
     return _straight_through(partial(_inject_fwd, numerics=numerics), a, b)
 
 
+@lru_cache(maxsize=64)
+def _noise_constants(border: int) -> tuple[float, float]:
+    s = lut_lib.error_stats(border)
+    return s["mean"], s["std"]
+
+
+def _normal_draw(key: int, shape: tuple, device: torch.device) -> torch.Tensor:
+    """The one place ``amr_noise`` draws: standard normals of ``shape`` in
+    float32 from a ``torch.Generator`` on ``device`` seeded with ``key``
+    (drawn flat, so a (rows, N) draw is the same numbers whatever the
+    leading shape)."""
+    gen = torch.Generator(device=device).manual_seed(key)
+    return torch.randn(math.prod(shape), generator=gen, dtype=torch.float32,
+                       device=device).reshape(shape)
+
+
+def _key_batch(key) -> int | None:
+    """The number of keys of a per-request key batch (a tuple or list, one
+    key per request: ``noise_key`` under a (B,) step), or None for one key."""
+    return len(key) if isinstance(key, (tuple, list)) else None
+
+
+def matmul_amr_noise(a: torch.Tensor, b: torch.Tensor, border: int, key, *,
+                     draw=_normal_draw) -> torch.Tensor:
+    """Surrogate: exact matmul + error noise with AMR-MUL-matched moments.
+
+    Per-element product error has mean mu and std sigma (from the table);
+    a K-length accumulation contributes N(K*mu, sqrt(K)*sigma) in the int8
+    domain, rescaled by the quantization scales.  The exact product of the
+    int8-grid operands runs one product per request on a 2-D B
+    (``matmul_exact``): its float32 sums pass 2**24 at K = 2048, where the
+    order of a sum shows.
+
+    ``key`` may be a batch of keys, one per request (the leading-axis rows
+    divide evenly among them); each request's rows then come from its own
+    stream, at the shape a solo call draws.  ``draw(key, shape, device)``
+    makes the standard normals (``_normal_draw``; a test feeds JAX's).
+    """
+    mu, sigma = _noise_constants(border)
+    qa, sa = quantize_int8_ste(a, axis=-1)
+    qb, sb = quantize_int8_ste(b, axis=-2)
+    k = a.shape[-1]
+    exact = matmul_exact(qa, qb)
+    nb = _key_batch(key)
+    if nb is None:
+        normal = draw(key, tuple(exact.shape), exact.device)
+    else:
+        rows = math.prod(exact.shape[:-1])
+        if rows % nb:
+            raise ValueError(
+                f"amr_noise got {nb} per-request keys but {rows} output rows "
+                f"({tuple(exact.shape)}); rows must divide evenly across requests")
+        per = rows // nb
+        normal = torch.cat([draw(kk, (per, exact.shape[-1]), exact.device) for kk in key])
+        normal = normal.reshape(exact.shape)
+    noise = mu * k + math.sqrt(float(k)) * sigma * normal
+    return (exact + noise) * sa * sb
+
+
 def resolve_numerics(numerics, site: str | None = None):
     """Resolve a policy (``numerics/policy.py``) at the ambient static
     layer; a bare ``AMRNumerics`` or None passes through.  The one
@@ -286,19 +353,21 @@ def resolve_numerics(numerics, site: str | None = None):
     return numerics.resolve(site, current_scope().static_layer)
 
 
-def approx_matmul(a: torch.Tensor, b: torch.Tensor, numerics=None, *,
+def approx_matmul(a: torch.Tensor, b: torch.Tensor, numerics=None, *, key=None,
                   site: str | None = None) -> torch.Tensor:
     """Dispatch a matmul under the given numerics policy (None = exact).
 
     ``numerics`` is one ``AMRNumerics`` or a site-resolved policy
     (``numerics/policy.py``), which resolves here against the call-site
     label ``site`` (e.g. ``"attn.qk"``) and the ambient scope's static
-    layer.
+    layer.  ``site`` with the ambient scope's step, layer and unit also
+    picks the ``amr_noise`` stream; an explicit ``key`` (one key or a
+    per-request batch, ``context.noise_key``) overrides that derivation.
     """
     numerics = resolve_numerics(numerics, site)
     if numerics is None or numerics.is_exact():
         return matmul_exact(a, b)
-    return registry.get_mode(numerics.mode).impl(a, b, numerics, site=site)
+    return registry.get_mode(numerics.mode).impl(a, b, numerics, key=key, site=site)
 
 
 # --------------------------------------------------------------------------
@@ -326,25 +395,33 @@ def _validate_inject(nm) -> None:
 
 
 registry.register_mode(
-    "exact", lambda a, b, nm, *, site=None: matmul_exact(a, b),
+    "exact", lambda a, b, nm, *, key=None, site=None: matmul_exact(a, b),
     description="torch.matmul in the requested dtype (baseline)", exact=True)
 
 registry.register_mode(
-    "amr_lut", lambda a, b, nm, *, site=None: matmul_amr_lut(a, b, nm.border),
+    "amr_lut", lambda a, b, nm, *, key=None, site=None: matmul_amr_lut(a, b, nm.border),
     required_params=("border",), validate=_require_border,
     description="bit-exact LUT-gather oracle (small shapes)")
 
 registry.register_mode(
-    "amr_inject", lambda a, b, nm, *, site=None: matmul_amr_inject(a, b, nm),
+    "amr_inject", lambda a, b, nm, *, key=None, site=None: matmul_amr_inject(a, b, nm),
     required_params=("border",), validate=_validate_inject, accepts_params=("schedule_ref",),
     description="exact error injection by circuit replay (any schedule)")
 
 registry.register_mode(
-    "amr_lowrank", lambda a, b, nm, *, site=None: matmul_amr_lowrank(a, b, nm.border, nm.rank),
+    "amr_lowrank",
+    lambda a, b, nm, *, key=None, site=None: matmul_amr_lowrank(a, b, nm.border, nm.rank),
     required_params=("border", "rank"), validate=partial(_validate_rank, minimum=1),
     defaults={"rank": 4}, description="low-rank error factorization, one float32 product")
 
 registry.register_mode(
-    "amr_kernel", lambda a, b, nm, *, site=None: matmul_amr_kernel(a, b, nm.border, nm.rank),
+    "amr_noise", lambda a, b, nm, *, key=None, site=None: matmul_amr_noise(
+        a, b, nm.border, key if key is not None else noise_key(nm.noise_seed, site)),
+    required_params=("border", "noise_seed"), validate=_require_border,
+    description="Gaussian surrogate with AMR-matched moments")
+
+registry.register_mode(
+    "amr_kernel",
+    lambda a, b, nm, *, key=None, site=None: matmul_amr_kernel(a, b, nm.border, nm.rank),
     required_params=("border", "rank"), validate=partial(_validate_rank, minimum=0),
     defaults={"rank": 0}, description="hand-written CUDA kernels (rank 0 = full-LUT gather)")

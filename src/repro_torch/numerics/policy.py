@@ -20,10 +20,9 @@ around each layer.
 
 Policies serialize to JSON (``save_policy`` / ``load_policy``) in the JAX
 package's schema, and a file written by either package loads in the other.
-The JAX package's ``AMRNumerics`` also has ``noise_seed`` (``amr_noise``,
-not ported) and ``inject_impl`` (the device picks the route here): the
-reader accepts both fields and ignores them, and the writer writes only
-fields the JAX reader accepts.
+The JAX package's ``AMRNumerics`` also has ``inject_impl`` (the device
+picks the route here): the reader accepts that field and ignores it, and
+the writer writes only fields the JAX reader accepts.
 """
 from __future__ import annotations
 
@@ -175,15 +174,15 @@ def as_policy(numerics) -> NumericsPolicy | None:
 
 # ------------------------------------------------------------------ JSON
 # Schema (the JAX package's):
-#   numerics:  {"mode": str, "border": int, "rank": int, "schedule_ref": str|null}
-#              (the JAX writer adds "noise_seed" and "inject_impl")
+#   numerics:  {"mode": str, "border": int, "rank": int, "noise_seed": int,
+#               "schedule_ref": str|null}  (the JAX writer adds "inject_impl")
 #   uniform:   {"kind": "uniform", "numerics": {...}}
 #   per_layer: {"kind": "per_layer", "default": {...},
 #               "layers": {"<flat index>": {...}}, "sites": {"<site>": {...}},
 #               "layer_sites": [[layer, site, {...}], ...], "meta": {...}}
 
-_NUMERICS_FIELDS = ("mode", "border", "rank", "schedule_ref")
-_IGNORED_FIELDS = ("noise_seed", "inject_impl")  # JAX-only fields, read and dropped
+_NUMERICS_FIELDS = ("mode", "border", "rank", "noise_seed", "schedule_ref")
+_IGNORED_FIELDS = ("inject_impl",)  # a JAX-only field, read and dropped
 
 
 def numerics_to_json(nm: AMRNumerics) -> dict:

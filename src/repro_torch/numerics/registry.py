@@ -10,7 +10,7 @@ Callers never compare mode names.
 
 Registered impls share one calling convention::
 
-    impl(a, b, numerics, *, site=None) -> torch.Tensor
+    impl(a, b, numerics, *, key=None, site=None) -> torch.Tensor
 
 with ``a: (..., M, K)``, ``b: (K, N)`` or a batched ``(..., K, N)``.
 """
@@ -23,11 +23,6 @@ __all__ = ["ModeSpec", "register_mode", "get_mode", "mode_names", "is_exact_mode
            "validate_policy", "default_policy"]
 
 Impl = Callable[..., Any]
-
-# Modes of the JAX package this port does not run yet; a policy naming one
-# is refused by name (``amr_noise`` needs the PRNG of numerics/context.py).
-NOT_YET_PORTED = ("amr_noise",)
-
 
 @dataclasses.dataclass(frozen=True)
 class ModeSpec:
@@ -78,10 +73,6 @@ def mode_names() -> tuple[str, ...]:
 
 
 def get_mode(name: str) -> ModeSpec:
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"numerics mode {name!r} is not yet ported to repro_torch; "
-            f"ported modes: {mode_names()}")
     spec = _REGISTRY.get(name)
     if spec is None:
         raise ValueError(f"unknown numerics mode {name!r}; valid modes: {mode_names()}")

@@ -168,9 +168,11 @@ def test_saturation_guard_raises_where_jax_does(k, raises):
 
 
 def test_unported_modes_refused():
-    for mode in tapprox.registry.NOT_YET_PORTED:
-        with pytest.raises(NotImplementedError):
-            tapprox.AMRNumerics(mode)
+    """Every mode of the JAX package is ported now: the registry names them
+    all, and only a name it does not know is refused."""
+    assert tapprox.registry.mode_names() == japprox.registry.mode_names()
+    for mode in tapprox.registry.mode_names():
+        assert tapprox.AMRNumerics(mode).mode == japprox.AMRNumerics(mode).mode
     with pytest.raises(ValueError):
         tapprox.AMRNumerics("bogus")
     with pytest.raises(ValueError):

@@ -374,7 +374,7 @@ def test_zamba2_rank0_layers_match_jax_on_the_same_input():
             with torch.inference_mode():
                 got = tmodel._layer_full(tcfg, kind, flat, None,
                                          tmodel._block_params(tp, kind, i, g),
-                                         torch.from_numpy(np.array(x)))
+                                         torch.from_numpy(np.array(x)))[0]
             assert _max_rel(got, _np(want)) <= 1e-4, (g, kind)
             x = want
 

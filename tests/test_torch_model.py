@@ -84,7 +84,8 @@ def _field(cfg, name):
     return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
 
 
-@pytest.mark.parametrize("arch", ["gemma_2b", "gemma3_1b", "mamba2_370m", "amr_paper"])
+@pytest.mark.parametrize("arch", ["gemma_2b", "gemma3_1b", "mamba2_370m", "amr_paper", "dbrx_132b",
+                                  "moonshot_16b_a3b"])
 def test_config_fields_match_jax(arch):
     jmod = importlib.import_module(f"repro.configs.{arch}")
     tmod = importlib.import_module(f"repro_torch.configs.{arch}")

@@ -1,11 +1,11 @@
 """The port's numerics policy layer against the JAX package's.
 
-* registry: the same modes in the same order (``amr_noise`` refused by
-  name), the same defaults, the same validation;
+* registry: the same modes in the same order, ``amr_noise`` included,
+  the same defaults, the same validation;
 * ``PerLayerPolicy``: the same resolution at every (site, layer) of a grid,
   precedence (layer, site) > layer > site > default and dotted prefixes;
-* policy JSON files cross packages both ways (the port reads and drops the
-  JAX-only ``noise_seed`` and ``inject_impl``);
+* policy JSON files cross packages both ways (``noise_seed`` read and
+  written; the port reads and drops the JAX-only ``inject_impl``);
 * ``approx_matmul`` under a policy resolves per (site, layer) as JAX's:
   each runs, bit for bit, the design point JAX's policy resolves there;
 * reduced amr-paper-100m in float32 under a ``PerLayerPolicy`` (exact +
@@ -41,7 +41,7 @@ from repro_torch.numerics import quant as tq
 
 
 def _fields(nm):
-    return (nm.mode, nm.border, nm.rank, nm.schedule_ref)
+    return (nm.mode, nm.border, nm.rank, nm.noise_seed, nm.schedule_ref)
 
 
 def _policies(pkg):
@@ -57,14 +57,17 @@ def _policies(pkg):
 
 # ------------------------------------------------------------------ registry
 def test_registry_modes_order_defaults_and_validation():
-    assert tnum.mode_names() == tuple(m for m in jnum.mode_names() if m != "amr_noise")
+    assert tnum.mode_names() == jnum.mode_names()
     for mode in tnum.mode_names():
         assert tnum.is_exact_mode(mode) == jnum.is_exact_mode(mode)
-        assert _fields(tnum.default_policy(mode, border=6, rank=3, schedule_ref=None)) == \
-            _fields(jnum.default_policy(mode, border=6, rank=3, schedule_ref=None)), mode
+        assert tnum.get_mode(mode).required_params == jnum.get_mode(mode).required_params
+        assert _fields(tnum.default_policy(mode, border=6, rank=3, noise_seed=5,
+                                           schedule_ref=None)) == \
+            _fields(jnum.default_policy(mode, border=6, rank=3, noise_seed=5,
+                                        schedule_ref=None)), mode
         assert _fields(tnum.default_policy(mode)) == _fields(jnum.default_policy(mode)), mode
-    with pytest.raises(NotImplementedError, match="amr_noise"):
-        tnum.AMRNumerics("amr_noise")
+    assert _fields(tnum.AMRNumerics("amr_noise", noise_seed=3)) == \
+        _fields(jnum.AMRNumerics("amr_noise", noise_seed=3))
     for mode, kw in (("bogus", {}), ("amr_lowrank", {"rank": 0}), ("amr_kernel", {"rank": -1}),
                      ("amr_lut", {"border": -1}), ("amr_inject", {"schedule_ref": 3})):
         with pytest.raises(ValueError):
@@ -113,7 +116,13 @@ def test_numerics_json_fields():
     nm = tnum.numerics_from_json({"mode": "amr_inject", "border": 6, "rank": 8,
                                   "noise_seed": 3, "inject_impl": "pallas",
                                   "schedule_ref": None})
-    assert _fields(nm) == ("amr_inject", 6, 8, None)
+    assert _fields(nm) == ("amr_inject", 6, 8, 3, None)
+    # noise_seed round-trips, and a JAX-written amr_noise entry loads with its seed
+    noise = jnum.policy_to_json(jnum.UniformPolicy(jnum.AMRNumerics("amr_noise", noise_seed=3)))
+    loaded = tnum.policy_from_json(json.loads(json.dumps(noise)))
+    assert _fields(loaded.numerics) == ("amr_noise", 8, 8, 3, None)
+    assert tnum.numerics_from_json(tnum.numerics_to_json(loaded.numerics)) == loaded.numerics
+    assert jnum.policy_from_json(tnum.policy_to_json(loaded)).numerics.noise_seed == 3
     jpolicy = importlib.import_module("repro.numerics.policy")
     assert set(tnum.numerics_to_json(nm)) <= set(jpolicy.numerics_to_json(jnum.AMRNumerics()))
     with pytest.raises(ValueError, match="unknown AMRNumerics fields"):

@@ -50,7 +50,20 @@ Phases (any failure raises, and the run exits non-zero):
    prefill; (2048, 1408) and (1408, 2048)) at border 8 and 14, the gather
    bit for bit against its plain version and the replay against the
    gather on every expert and against its plain version on 2
-   (``moe_expert_kernel_rows``);
+   (``moe_expert_kernel_rows``); kernels 1-4 at this slice's shapes
+   (``FRONTEND_SHAPES``: whisper-small's decode cross K / V at M = 3000,
+   its encoder's attn.qk / attn.pv over 24 groups of 1500 x 1500, a decode
+   step's cross attn.qk; internvl2-76b's MLP at decode and prefill;
+   moonshot-v1-16b-a3b's training expert buffers, C = 120, and its rank-8
+   attention), each against its plain version on 2 groups or rows
+   (``frontend_kernel_rows``); the row mean-square kernel of every norm
+   (``NORM_SHAPES``: a decode step's and a prefill's, gemma3-1b's q_norm,
+   whisper-small's encoder, internvl2-76b's prefill, moonshot's training
+   batch) within one float32 ulp of its plain version (float64 sums of
+   the squares on both), a row alone bit for bit the same row in the
+   batch (``norm_kernel_rows``).  The norm kernel
+   launches in every served and trained run below; its count is held
+   above zero, not to a formula;
 2b. A/B, with ``--parent`` (a tree of the parent commit, for example
    ``git archive`` unpacked under ``build/``): the gather kernels (border
    8) at the gemma-2b and mamba2-370m rank-0 paths' shapes, the low-rank
@@ -64,7 +77,11 @@ Phases (any failure raises, and the run exits non-zero):
    each run a process of its own that builds its tree's kernels: the event
    time (where a call takes less than 0.2 ms, the median of 5 windows of
    200 calls, with the host time beside it: the wrapper's checks, plan and
-   launch) and the device time, side by side;
+   launch) and the device time, side by side.  Then the served rank-0
+   runs of gemma-2b (4 x 16), mamba2-370m (4 x 16) and gemma3-1b (2 x
+   600) through ``ServeEngine``, parent, change, change, parent, a
+   process each (``time_serve``): decode ms a step, prefill and wall
+   seconds, the medians of 3 runs after a warm one (``phase_ab_serve``);
 3. reference — reduced gemma-2b in float32 on the card (kernels) and on
    the CPU (plain versions), same weights, under amr_kernel rank 0 and 8
    and amr_inject, reduced mamba2-370m under exact (SSD kernel in full
@@ -73,9 +90,20 @@ Phases (any failure raises, and the run exits non-zero):
    of 8), reduced zamba2-1.2b under exact and rank 0, and reduced
    dbrx-132b and moonshot-v1-16b-a3b under exact and rank 0 in both MoE
    dispatch forms (replicate: the experts through the numerics; local:
-   exact experts): tokens equal, logits within 1e-3 * max|logit|; and on
+   exact experts): tokens equal, logits within 1e-3 * max|logit| or,
+   where not, phase 9a's trace rule over every quantization of the run
+   (the first moved int8 index at a rounding tie, the log names it:
+   reduced gemma3-1b at rank 0 and under amr_inject, one value at 56.5
+   within 4e-6 int8 steps, quantization 396 of 1224); and on
    the card reduced dbrx-132b (replicate) under amr_inject gives its rank-0
-   tokens and logits bit for bit;
+   tokens and logits bit for bit; then reduced whisper-small and
+   internvl2-76b under exact and rank 0 through their model-level entry
+   points (``generate``: encode, prefill with the frames or patches,
+   greedy decode steps; the forward and ``encode`` too), tokens equal and
+   float outputs within 1e-3 of the max; one training step of reduced
+   moonshot-v1-16b-a3b at rank 0 in both forms by phase 9a's rank-0 rules,
+   and two backward passes on the card at 2 x 1100 tokens bit for bit
+   (``phase_reference_frontends``);
 4. attn_fused — the fused AMR attention op (``kernels/attn_fused``), which
    no served step dispatches (the models run the unfused seam, as the JAX
    package's do), at gemma-2b's attention width (8 heads, 1 KV head,
@@ -159,6 +187,27 @@ Phases (any failure raises, and the run exits non-zero):
    under amr_inject (2 requests of 4 tokens, 2 new: the replay kernel
    only); batched vs solo bit for bit in each; rank 0 of each form
    profiled; prefill and decode seconds, ms per decode step, peak memory;
+8d. whisper-small — full width (12 encoder and 12 decoder layers, d_model
+   768, 12 heads of 64, d_ff 3072 gelu, vocab 51865, tied; random bf16
+   weights from seed 0) through its model-level entry points, as the
+   conformance decode arm drives them (``generate``: ``encode`` of the
+   frames, ``prefill_with_cache`` with them, greedy ``decode_step``s with
+   the encoder output; every decoder layer projects the cross K and V of
+   the frames anew each step): 2 requests of 1500 random frames and 16-token
+   prompts, 14 new tokens, under exact, rank 0 and rank 8; the launches of
+   each kernel in the prefill and in each decode step checked exactly;
+   batched == solo bit for bit; rank 0 profiled; then in float32 (where
+   both quantizers agree) 2 requests of 4 tokens, 2 new, under amr_inject
+   (the replay kernel only), whose tokens and logits equal rank 0's bit
+   for bit (``phase_whisper``);
+8e. internvl2-76b — full width (d_model 8192, 64 heads, 8 KV heads of 128,
+   d_ff 28672, vocab 128256, untied) with its depth cut to 24 of 80 layers
+   (41.1 GB of layers and 4.2 GB of embedding and head; its 141 GB do not
+   fit the card), random bf16 weights: 2 requests of 256 random patch
+   embeddings (the exact ``vision.proj``, prepended) and 16-token prompts,
+   8 new tokens, the KV capacity widened by the prefix, under exact and
+   rank 0, launches checked, batched == solo bit for bit, rank 0 profiled
+   (``phase_vlm``);
 9. train — (a) reduced amr-paper-100m in float32 trained on the card
    (kernels) and on the CPU (plain versions) from the same weights on the
    same ``SyntheticLM`` batches under its four training policies
@@ -192,6 +241,15 @@ Phases (any failure raises, and the run exits non-zero):
    zamba2-1.2b at rank 8 (2 x 1024), remat "block": the SSD kernel twice
    per Mamba2 layer a step, its backward once; (c) the restart on
    full-width mamba2-370m at rank 0 (2 x 2048);
+   and for MoE training and the audio family: (b) full-width whisper-small
+   at rank 0 and rank 8 on 2 x 1500 frames and 2 x 448 tokens (the
+   encoder's launches once a step: no encoder layer is recomputed), and
+   moonshot-v1-16b-a3b at full width with its depth cut to 4 of 48 layers
+   (2 x 512 tokens, 6144 routes over 64 experts of capacity 120: drops) as
+   registered (local) at rank 8 and in the replicate form at rank 0, where
+   two backward passes on the first batch must give the same bits; (c) the
+   restart on moonshot-v1-16b-a3b, 2 layers at full width, replicate form
+   at rank 0 (2 x 512);
    (d) with phase 2, the gathers, the low-rank and the replay kernel at
    amr-paper-100m's training shapes (M = 2048; (768, 768), (768, 3072),
    (3072, 768); attn.qk / attn.pv over 96 groups of 256 x 64 x 256), border
@@ -237,6 +295,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 PEAK_FLOAT_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+PEAK_FLOAT64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (data sheet)
 INT_OPS_PER_CLOCK_PER_SM = 64  # 32-bit integer and logic, compute capability 9.0
 L2_BYTES = 50 * 2**20
 BORDER, RANK = 8, 8
@@ -253,9 +312,35 @@ G3_CHUNKED_S = 16384               # gemma3-1b's chunked prefill: 8 query blocks
 TRANSPOSE_OPS = 5 * 16 * 6  # 32x32 bit transpose: 5 levels x 16 word pairs x 6 ops
 PLAIN_REPLAY_PAIRS = 1 << 24  # the plain replay's chunk on the card (memory knob only)
 GATHERS = {"amr_matmul_int8_lut", "amr_matmul_int8_lut_grouped"}
+# every model's norms: launched in every served and trained run, under any
+# numerics; its counts are not held to a formula (the final norm is outside
+# the rematerialised blocks)
+NORM_KERNEL = "row_mean_square"
 MOE_EXPERT_M = (6, 12, 96)  # C at top-6: a decode token, 2 tokens, a 16-token prompt
 MOON_INJECT_PROMPT, MOON_INJECT_GEN = 4, 2  # moonshot's amr_inject run: 2 requests of these
+MOON_INJECT_LAYERS = 12                     # ... on 12 of its 48 layers
 NOISE_SIGMAS = 5.0  # the amr_noise moment gate: mean 0 and std 1 within 5 standard errors
+WHISPER_PROMPT, WHISPER_GEN = 16, 14           # phase 8d: 2 requests of 1500 frames each
+WHISPER_INJECT_PROMPT, WHISPER_INJECT_GEN = 4, 2
+VLM_LAYERS, VLM_PROMPT, VLM_GEN = 24, 16, 8    # phase 8e: internvl2-76b, 24 of its 80 layers
+WHISPER_TRAIN_SEQ = 448                        # phase 9b: whisper's target length
+# phase 2: kernels 1-4 at this slice's shapes, (kind, model, site, (G or 0, M, K, N))
+FRONTEND_SHAPES = [
+    ("gather", "whisper-small", "xattn.wk/wv, a decode step", (0, 3000, 768, 768)),
+    ("gather", "whisper-small", "encoder attn.qk", (24, 1500, 64, 1500)),
+    ("gather", "whisper-small", "encoder attn.pv", (24, 1500, 1500, 64)),
+    ("gather", "whisper-small", "cross attn.qk, a decode step", (24, 1, 64, 1500)),
+    ("gather", "internvl2-76b", "mlp.w_gate/w_up, a decode step", (0, 2, 8192, 28672)),
+    ("gather", "internvl2-76b", "mlp.w_gate/w_up, prefill", (0, 544, 8192, 28672)),
+    ("gather", "moonshot-v1-16b-a3b", "training experts w_gate/w_up", (64, 120, 2048, 1408)),
+    ("gather", "moonshot-v1-16b-a3b", "training experts w_down", (64, 120, 1408, 2048)),
+    ("lowrank", "whisper-small", "xattn.wk/wv, a decode step", (0, 3000, 768, 768)),
+    ("lowrank", "moonshot-v1-16b-a3b", "training attn.wq", (0, 1024, 2048, 2048)),
+    ("replay", "whisper-small", "xattn.wk/wv, a decode step", (0, 3000, 768, 768)),
+    ("replay", "whisper-small", "encoder attn.qk", (24, 1500, 64, 1500)),
+]
+MOON_TRAIN_LAYERS, MOON_TRAIN_SEQ = 4, 512     # phase 9b: moonshot, 4 of its 48 layers
+MOON_RESTART_LAYERS = 2                        # phase 9c
 
 
 def log(msg: str) -> None:
@@ -417,11 +502,13 @@ def phase_build() -> None:
     from repro_torch.kernels.attn_fused import kernel as akernel
     from repro_torch.kernels.build import build_all
     from repro_torch.kernels.inject_replay import kernel as rkernel
+    from repro_torch.kernels.rms_norm import kernel as nkernel
     from repro_torch.kernels.ssd_scan import kernel as skernel
 
     t0 = time.perf_counter()
     records = build_all(list(kernel.LIBRARIES) + list(rkernel.LIBRARIES)
-                        + list(skernel.LIBRARIES) + list(akernel.LIBRARIES))
+                        + list(skernel.LIBRARIES) + list(akernel.LIBRARIES)
+                        + list(nkernel.LIBRARIES))
     log(f"[build] {len(records)} CUDA sources in {time.perf_counter() - t0:.1f}s wall "
         + ", ".join(f"{k} {v.seconds:.1f}s" for k, v in records.items()))
     for name, rec in records.items():
@@ -563,8 +650,10 @@ def phase_kernels(device, cfg, mamba_cfg, g3_cfg, zamba_cfg) -> dict:
     from repro_torch.configs import moonshot_16b_a3b
 
     rows["moe_expert"] = moe_expert_kernel_rows(device, moonshot_16b_a3b.CONFIG, int_rate)
+    rows["frontend"] = frontend_kernel_rows(device, int_rate)
+    rows["norm"] = norm_kernel_rows(device)
     for name, rs in rows.items():
-        if name in ("train_shapes", "moe_expert"):
+        if name in ("train_shapes", "moe_expert", "frontend", "norm"):
             continue
         for r in rs:
             log(f"[kernel] {name} " + json.dumps(r))
@@ -784,6 +873,155 @@ def moe_expert_kernel_rows(device, cfg, int_rate) -> list[dict]:
             del b, ib
     for r in out:
         log("[kernel] moe expert " + json.dumps(r))
+    return out
+
+
+# (model, what, rows, d) of the row mean-square kernel: a served decode
+# step's and a 16-token prefill's norms (gemma-2b), gemma3-1b's q_norm over a
+# 600-token prefill, whisper-small's encoder norms over 2 x 1500 frames,
+# internvl2-76b's over a 2 x 272-token prefill and moonshot-v1-16b-a3b's over
+# its 2 x 512-token training batch
+NORM_SHAPES = [("gemma-2b", "decode", REQUESTS, 2048), ("gemma-2b", "prefill", PROMPT_LEN, 2048),
+               ("gemma3-1b", "q_norm prefill", 600 * 4, 256),
+               ("whisper-small", "encoder", 2 * 1500, 768),
+               ("internvl2-76b", "prefill", 2 * 272, 8192),
+               ("moonshot-v1-16b-a3b", "training", 2 * 512, 2048)]
+
+
+def norm_kernel_rows(device) -> list[dict]:
+    """The row mean-square kernel at ``NORM_SHAPES`` against its plain
+    version (the float64 mean of the squares, rounded to float32), within
+    one float32 ulp of it (both sums within d 2^-53 of the exact one), and
+    each of the first 3 rows alone, and the first 3 together, bit for bit
+    the batch's rows: the property the kernel is there for.  No PyTorch
+    call computes a row's mean square alone (``library_ms`` null).  The
+    bound counts float64 multiply-adds at PEAK_FLOAT64_OPS_PER_S."""
+    import torch
+
+    from repro_torch.kernels.rms_norm import kernel as nkernel
+    from repro_torch.kernels.rms_norm.ref import mean_square_ref
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    out = []
+    for model, what, n, d in NORM_SHAPES:
+        xs = [torch.randn((n, d), generator=gen, device=device)
+              for _ in range(min(copies(4 * n * d), 64))]
+        got = nkernel.mean_square(xs[0])
+        want = mean_square_ref(xs[0])
+        err = (got - want).abs()
+        ulp = torch.nextafter(want, torch.full_like(want, math.inf)) - want
+        if not bool((err <= ulp).all()):
+            raise AssertionError(f"row mean square off its plain version at {(n, d)}: "
+                                 f"{float((err / ulp).max())} ulp")
+        alone = [nkernel.mean_square(xs[0][i:i + 1].clone()) for i in range(min(n, 3))]
+        if not (all(torch.equal(a, got[i:i + 1]) for i, a in enumerate(alone))
+                and torch.equal(nkernel.mean_square(xs[0][:3].clone()), got[:3])):
+            raise AssertionError(f"row mean square at {(n, d)}: a row alone differs from "
+                                 f"the same row in the batch")
+        b_ms, b_by = bound(4 * n * d + 4 * n, 2 * n * d, PEAK_FLOAT64_OPS_PER_S)
+        args = [(x,) for x in xs]
+        out.append(dict(model=model, what=what, shape=(n, d), max_abs_err=float(err.max()),
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                        **call_times(nkernel.mean_square, args, 50),
+                        plain_ms=time_ms(mean_square_ref, args, 50),
+                        plain_device_ms=device_ms(mean_square_ref, args, 20)))
+        log("[kernel] norm " + json.dumps(out[-1]))
+    return out
+
+
+def frontend_kernel_rows(device, int_rate: float) -> list[dict]:
+    """Kernels 1-4 at the shapes this slice's paths give them, border 8
+    (``FRONTEND_SHAPES``): whisper-small's decode cross-attention K and V
+    (M = 2 x 1500 frames), its encoder's bidirectional attn.qk / attn.pv
+    (24 groups of 1500 x 1500 over 64) and a decode step's cross attn.qk;
+    internvl2-76b's MLP at decode and at its 2 x 272-row prefill; the
+    expert buffers of moonshot-v1-16b-a3b's training batch (C = 120) and
+    its attention at rank 8.  Each kernel against its plain version on the
+    first ``sub`` groups (grouped) or rows (flat), which the kernels compute
+    independently of the rest: the gathers and the replay bit for bit (the
+    replay also equal to the gather on the whole), the low-rank kernel
+    within 1e-5 of its float32 scale; event and device ms, the plain
+    version's ms on the subset, the bound."""
+    import torch
+
+    from repro_torch.core import engine, lut
+    from repro_torch.kernels.amr_matmul import kernel, ops, ref
+    from repro_torch.kernels.inject_replay import kernel as rkernel
+    from repro_torch.kernels.inject_replay import ref as rref
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    table, table32 = ops.kernel_table(BORDER, device), lut.table_tensor(BORDER, device)
+    inj = engine.get_injector(2, BORDER)
+    u, v = lut.factor_tensors(BORDER, RANK, device)
+    out = []
+    for kind, model, site, (g, m, k, n) in FRONTEND_SHAPES:
+        grouped = g > 0
+        lead = (g,) if grouped else ()
+        a = _int8((*lead, m, k), gen, device)
+        bs = [_int8((*lead, k, n), gen, device) for _ in range(min(copies(max(g, 1) * k * n), 8))]
+        sub = 2
+        part = (a[:sub], bs[0][:sub]) if grouped else (a[:sub], bs[0])
+        reps = 3 if max(g, 1) * m * n * k > 2e10 else 10
+        if kind == "lowrank":
+            fn, args = kernel.amr_matmul_int8, [(a, b, u, v) for b in bs]
+            got = fn(a, bs[0], u, v)[:sub]
+            want = ref.lowrank_matmul_ref(*part, u, v)
+            fa, fb = part[0].float(), part[1].float()
+            scale = float((fa.abs() @ fb.abs() + ref.lowrank_matmul_ref(*part, u.abs(), v.abs())
+                           - fa @ fb).max())
+            err = float((got - want).abs().max())
+            if not err <= 1e-5 * scale:
+                raise AssertionError(f"low-rank kernel off its plain version at {model} {site}: "
+                                     f"{err} > 1e-5 * {scale}")
+            b_ms, b_by = bound(m * k + k * n + 2 * u.numel() * 4 + 4 * m * n,
+                               2 * m * n * k * (1 + RANK), PEAK_FLOAT_OPS_PER_S)
+            ua, vb = u[a.long() + 128], v[bs[0].long() + 128]
+            a_aug = torch.cat([a.float()[..., None], ua], -1).reshape(m, k * (1 + RANK))
+            b_aug = torch.cat([bs[0].float()[:, None, :], vb.transpose(1, 2)], 1).reshape(
+                k * (1 + RANK), n)
+            library = time_ms(torch.matmul, [(a_aug, b_aug)], reps)
+            plain = time_ms(ref.lowrank_matmul_ref, [(*part, u, v)], 1)
+            del ua, vb, a_aug, b_aug
+        elif kind == "gather":
+            fn = kernel.amr_matmul_int8_lut_grouped if grouped else kernel.amr_matmul_int8_lut
+            args = [(a, b, table) for b in bs]
+            got = fn(a, bs[0], table)
+            if not torch.equal(got[:sub], ref.lut_matmul_ref(*part, table32)):
+                raise AssertionError(f"gather kernel differs from plain at {model} {site}")
+            err, library = 0.0, None
+            b_ms, b_by = bound(max(g, 1) * (m * k + k * n + 4 * m * n)
+                               + table.numel() * table.element_size(),
+                               2 * max(g, 1) * m * n * k, int_rate)
+            plain = time_ms(ref.lut_matmul_ref, [(*part, table32)], 1)
+        else:
+            ia = (a if grouped else a[None]).to(torch.int32) + 128     # (G or 1, M, K)
+            ibs = [b.to(torch.int32) + 128 for b in bs]
+            fn, args = rkernel.inject_replay_int32, [(inj, ia, ib) for ib in ibs]
+            got = fn(inj, ia, ibs[0])
+            lut_out = (kernel.amr_matmul_int8_lut_grouped(a, bs[0], table) if grouped
+                       else kernel.amr_matmul_int8_lut(a, bs[0], table)[None])
+            rpart = (ia[:sub], ibs[0][:sub]) if grouped else (ia[:, :sub], ibs[0])
+            got_part = got[:sub] if grouped else got[:, :sub]
+            if not torch.equal(got, lut_out) or not torch.equal(
+                    got_part, rref.replay_matmul_ref(inj, *rpart, max_pairs=PLAIN_REPLAY_PAIRS)):
+                raise AssertionError(f"replay kernel differs from the gather kernel or its "
+                                     f"plain version at {model} {site}")
+            err, library = 0.0, None
+            out_words = max(g, 1) * m * math.ceil(n / 32)
+            b_ms, b_by = bound(4 * (ia.numel() + ibs[0].numel() + max(g, 1) * m * n),
+                               replay_ops(inj, out_words * k, out_words), int_rate)
+            plain = time_ms(lambda *x: rref.replay_matmul_ref(*x, max_pairs=PLAIN_REPLAY_PAIRS),
+                            [(inj, *rpart)], 1)
+        torch.cuda.synchronize()
+        row = dict(kernel=kind, model=model, site=site, border=BORDER,
+                   shape=(g, m, k, n) if grouped else (m, k, n), max_abs_err=err,
+                   bound_ms=b_ms, bound_by=b_by, ms=time_ms(fn, args, reps),
+                   device_ms=device_ms(fn, args, reps), plain_ms=plain,
+                   plain_on=f"{sub} {'groups' if grouped else 'rows'}", library_ms=library)
+        out.append(row)
+        log("[kernel] new shape " + json.dumps(row))
+        del a, bs, args, got
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1134,11 +1372,92 @@ def phase_ab(parent: Path) -> dict:
     return table
 
 
+# (label, config module, prompts, prompt length, capacity) of the served A/B:
+# the rank-0 runs of phase 5 and gemma3-1b's long one
+AB_SERVE_RUNS = [("gemma-2b rank 0", "gemma_2b", REQUESTS, PROMPT_LEN, CAPACITY),
+                 ("mamba2-370m rank 0", "mamba2_370m", REQUESTS, PROMPT_LEN, CAPACITY),
+                 ("gemma3-1b rank 0", "gemma3_1b", SLOTS, G3_PROMPT, G3_CAPACITY)]
+AB_SERVE_REPEATS = 3  # timed runs of each, after a warm one
+
+
+def time_serve() -> dict:
+    """Served runs (``AB_SERVE_RUNS``, rank 0, border 8, GEN new tokens a
+    request, SLOTS slots) through ServeEngine from whichever ``repro_torch``
+    is first on sys.path: per run a warm run, then AB_SERVE_REPEATS timed
+    ones, each with its decode ms a step, prefill seconds and wall
+    seconds.  The same calls and seeded weights and prompts in this tree
+    and in a parent's."""
+    import importlib
+
+    import torch
+
+    from repro_torch.numerics import AMRNumerics
+    from repro_torch.serve import Request, ServeEngine
+
+    device = torch.device("cuda")
+    out = {}
+    for label, module, reqs, prompt_len, capacity in AB_SERVE_RUNS:
+        config = importlib.import_module(f"repro_torch.configs.{module}").CONFIG
+        cfg = dataclasses.replace(config, numerics=AMRNumerics("amr_kernel", border=BORDER,
+                                                               rank=0))
+        params = model_params(device, config)
+        times = []
+        for _ in range(1 + AB_SERVE_REPEATS):
+            eng = ServeEngine(cfg, params, n_slots=SLOTS, capacity=capacity, device=device)
+            for p in model_prompts(config, prompt_len)[:reqs]:
+                eng.submit(Request(prompt=p, max_new_tokens=GEN))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            times.append(dict(wall_s=time.perf_counter() - t0, prefill_s=eng.prefill_seconds,
+                              decode_ms_per_step=1e3 * eng.decode_seconds / eng.steps_done))
+        out[label] = times[1:]
+        del params, eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_ab_serve(parent: Path) -> dict:
+    """The served rank-0 runs (``time_serve``) of this tree against a parent
+    tree's on one card: parent, change, change, parent, each a process of
+    its own that builds its tree's kernels (``--time-serve``).  Logs each
+    run's decode ms a step, prefill and wall seconds (the medians of
+    AB_SERVE_REPEATS runs) and the parent / change ratio of the means."""
+    runs = []
+    for label, src in (("parent", parent / "src"), ("change", ROOT / "src"),
+                       ("change", ROOT / "src"), ("parent", parent / "src")):
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--time-serve", str(src)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"[ab-serve] {label} run failed ({proc.returncode}):\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        runs.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
+        log(f"[ab-serve] {label} run from {src} in {time.perf_counter() - t0:.1f}s")
+    table = {}
+    for run_label in runs[0][1]:
+        for what in ("decode_ms_per_step", "prefill_s", "wall_s"):
+            med = {lab: [] for lab in ("parent", "change")}
+            for lab, r in runs:
+                med[lab].append(float(np.median([t[what] for t in r[run_label]])))
+            ratio = sum(med["parent"]) / sum(med["change"])
+            table[f"{run_label} {what}"] = dict(parent=med["parent"], change=med["change"],
+                                                parent_over_change=ratio)
+            log(f"[ab-serve] {run_label} {what}: parent {med['parent']}, change "
+                f"{med['change']}, parent/change {ratio:.3f}")
+    return table
+
+
 def phase_reference(device) -> None:
     """Reduced gemma-2b, mamba2-370m, gemma3-1b and zamba2-1.2b, float32: the
     card's kernels against the CPU's plain versions.  gemma3-1b's window of
     8 tokens: one prompt of 11 rolls its ring in prefill, the others wrap it
-    in decode."""
+    in decode.  Tokens equal; logits within 1e-3 of the largest, or, where
+    they are not, phase 9a's trace rule on every quantization of the run
+    (``_trace_rule``: the rounded values within PARITY_TRACE_TOL int8
+    steps until and at the first moved index, so the logits part at a
+    rounding tie; the log names it)."""
     from repro_torch.configs import (dbrx_132b, gemma3_1b, mamba2_370m, moonshot_16b_a3b,
                                      zamba2_1p2b)
     from repro_torch.configs.gemma_2b import reduced
@@ -1146,6 +1465,7 @@ def phase_reference(device) -> None:
     from repro_torch.models import init_params
     from repro_torch.models.tree import tree_map
     from repro_torch.numerics import AMRNumerics
+    from repro_torch.numerics.quant import record_quantizations
     from repro_torch.serve import Request, ServeEngine
 
     cases = [(reduced(), AMRNumerics("amr_kernel", border=BORDER, rank=0)),
@@ -1169,7 +1489,7 @@ def phase_reference(device) -> None:
     for base, nm in cases:
         cfg = dataclasses.replace(base, dtype="float32", numerics=nm)
         params = init_params(cfg, 0, device="cpu")
-        out = {}
+        out, traces = {}, {}
         skernel.SSD.launches = 0
         for dev in ("cpu", device):
             eng = ServeEngine(cfg, tree_map(lambda t: t.to(dev), params), n_slots=2,
@@ -1177,7 +1497,9 @@ def phase_reference(device) -> None:
             window = [(5, 9, 2, 7, 1, 3, 8, 4, 6, 2, 11)] if base.sliding_window else []
             for prompt in prompts + window:
                 eng.submit(Request(prompt=prompt, max_new_tokens=5))
-            out[str(dev)] = eng.run()
+            with record_quantizations() as rec:
+                out[str(dev)] = eng.run()
+            traces[str(dev)] = [(xs.cpu(), q.cpu()) for xs, q in rec]
         cpu, card = out["cpu"], out[str(device)]
         if [c.tokens for c in cpu] != [c.tokens for c in card]:
             raise AssertionError(f"reduced model under {nm}: card tokens differ from CPU")
@@ -1185,7 +1507,12 @@ def phase_reference(device) -> None:
                    for x, y in zip(c.logits, d.logits))
         top = max(float(np.abs(x).max()) for c in cpu for x in c.logits)
         if not diff <= 1e-3 * top:
-            raise AssertionError(f"reduced model under {nm}: logits differ by {diff}")
+            trace = _trace_rule(traces[str(device)], traces["cpu"])
+            if trace["first_moved"] is None or not trace["ok"]:
+                raise AssertionError(f"reduced model under {nm}: logits differ by {diff}; "
+                                     f"quantization trace {trace}")
+            log(f"[reference] reduced {cfg.name} f32 {nm}: logits {diff:.3g} apart (max "
+                f"|logit| {top:.3g}) from a rounding tie: trace {json.dumps(trace)}")
         if (cfg.ssm is not None) != (skernel.SSD.launches > 0):
             raise AssertionError(f"reduced {cfg.name} under {nm}: SSD kernel launched "
                                  f"{skernel.SSD.launches} times")
@@ -1196,6 +1523,95 @@ def phase_reference(device) -> None:
         if cfg.moe is not None and cfg.moe.dispatch_shard == "replicate" and \
                 cfg.name == "dbrx-132b" and not nm.is_exact():
             inject_equals_rank0(device, cfg, params, prompts, card)
+
+
+def phase_reference_frontends(device) -> None:
+    """Phase 3 for the audio and VLM families and MoE training.  Reduced
+    whisper-small and internvl2-76b in float32 on the card (kernels) and on
+    the CPU (plain versions), the same weights (``init_params`` on the CPU,
+    moved) and inputs, under exact and rank 0: the forward's logits with the
+    frames or patches, ``encode`` (whisper), and ``generate`` (prefill with
+    them, then 4 greedy decode steps): tokens equal, every float output
+    within 1e-3 of the CPU's max |value| (the rule of ``phase_reference``).
+    Then one training step of reduced moonshot-v1-16b-a3b in both dispatch
+    forms at rank 0, card vs CPU by phase 9a's rank-0 rules (loss within
+    PARITY_LOSS_RTOL relative, each gradient leaf within PARITY_GRAD_TOL of
+    its max), and the gradients of one step computed twice on the card, at
+    2 x 1100 tokens (T K = 4400: the batch dispatched at once with JAX's
+    capacity), bit for bit."""
+    import torch
+
+    from repro_torch.configs import internvl2_76b, moonshot_16b_a3b, whisper_small
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import encode, forward, init_params
+    from repro_torch.models.tree import tree_items, tree_map
+    from repro_torch.numerics import AMRNumerics
+    from repro_torch.train.steps import make_grads_step
+
+    cpu = torch.device("cpu")
+    modes = (AMRNumerics("exact"), AMRNumerics("amr_kernel", border=BORDER, rank=0))
+    for base in (whisper_small.reduced(), internvl2_76b.reduced()):
+        for nm in modes:
+            cfg = dataclasses.replace(base, dtype="float32", numerics=nm)
+            params = init_params(cfg, 0, device="cpu")
+            tokens, extra = frontend_inputs(cfg, 2, 8, cpu)
+            out = []
+            for dev in (cpu, device):
+                p = tree_map(lambda t: t.to(dev), params)
+                t, e = tokens.to(dev), extra.to(dev)
+                with torch.inference_mode():
+                    res = generate(cfg, p, t, e, 5)
+                    res["forward"] = forward(cfg, p, t, e)[0].cpu()
+                    if cfg.encoder_layers:
+                        res["encode"] = encode(cfg, p, e).cpu()
+                out.append(res)
+            a, b = out
+            if not np.array_equal(a["tokens"], b["tokens"]):
+                raise AssertionError(f"reduced {cfg.name} under {nm}: card tokens "
+                                     f"{b['tokens'].tolist()} differ from CPU's "
+                                     f"{a['tokens'].tolist()}")
+            worst = {}
+            for key in ("forward", "encode", "logits"):
+                if key not in a:
+                    continue
+                xs, ys = (a[key], b[key]) if key == "logits" else ([a[key]], [b[key]])
+                top = max(float(np.abs(np.asarray(x)).max()) for x in xs)
+                diff = max(float(np.abs(np.asarray(x) - np.asarray(y)).max())
+                           for x, y in zip(xs, ys))
+                if not diff <= 1e-3 * top:
+                    raise AssertionError(f"reduced {cfg.name} under {nm}: {key} card vs CPU "
+                                         f"{diff} > 1e-3 * {top}")
+                worst[key] = diff / top
+            log(f"[reference] reduced {cfg.name} f32 {nm}: tokens equal "
+                f"{b['tokens'].tolist()}; max |card - CPU| / max |CPU| {worst}")
+
+    base = dataclasses.replace(moonshot_16b_a3b.reduced(), dtype="float32",
+                               numerics=AMRNumerics("amr_kernel", border=BORDER, rank=0))
+    for form in ("replicate", "local"):
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, dispatch_shard=form))
+        data = SyntheticLM(vocab=cfg.vocab, seq_len=16, batch=2, seed=0)
+        params = init_params(cfg, 0, device="cpu")
+        t_cpu, g_cpu, l_cpu = _parity_run(cfg, params, data, cpu)
+        t_card, g_card, l_card = _parity_run(cfg, params, data, device)
+        failed = _loss_and_grad_rules(l_card, l_cpu, g_card, g_cpu, PARITY_LOSS_RTOL, False)
+        if failed:
+            raise AssertionError(f"[train] parity reduced {cfg.name} {form}: {failed}")
+        want = dict(tree_items(g_cpu))
+        worst = max(_leaf_rule(g, want[k], False)[1] for k, g in tree_items(g_card))
+        long = SyntheticLM(vocab=cfg.vocab, seq_len=1100, batch=2, seed=0)
+        p = tree_map(lambda t: t.to(device), params)
+        batch = _train_batch(long, 0, device)
+        first, again = (make_grads_step(cfg)(p, batch) for _ in range(2))
+        moved = [k for (k, x), (_, y) in zip(tree_items(first), tree_items(again))
+                 if not torch.equal(x, y)]
+        if moved:
+            raise AssertionError(f"reduced {cfg.name} {form}: two backward passes on the card "
+                                 f"differ in {moved}")
+        log(f"[train] parity reduced {cfg.name} {form} form f32 rank 0: quantizations card vs "
+            f"CPU {_trace_rule(t_card, t_cpu)}; losses card {l_card} vs CPU {l_cpu} (rtol "
+            f"{PARITY_LOSS_RTOL}); gradients: max over leaves of max |diff| / max |CPU| "
+            f"{worst:.3g} (<= {PARITY_GRAD_TOL}); two backward passes at 2 x 1100 tokens on "
+            f"the card bit for bit ({len(tree_items(first))} leaves)")
 
 
 def inject_equals_rank0(device, cfg, params, prompts, rank0) -> None:
@@ -1523,9 +1939,10 @@ def all_kernels() -> tuple:
     from repro_torch.kernels.amr_matmul import kernel
     from repro_torch.kernels.attn_fused import kernel as akernel
     from repro_torch.kernels.inject_replay import kernel as rkernel
+    from repro_torch.kernels.rms_norm import kernel as nkernel
     from repro_torch.kernels.ssd_scan import kernel as skernel
 
-    return kernel.KERNELS + rkernel.KERNELS + skernel.KERNELS + akernel.KERNELS
+    return kernel.KERNELS + rkernel.KERNELS + skernel.KERNELS + akernel.KERNELS + nkernel.KERNELS
 
 
 class Run(NamedTuple):
@@ -1607,7 +2024,7 @@ def serve_model(device, card: str, config, params, runs: dict, solo: tuple, prof
                    for c in done for x in c.logits):
             raise AssertionError(f"{config.name} {label}: non-finite or misshapen logits")
         for name, n in counts.items():
-            if (name in run.uses) != (n > 0):
+            if (name in run.uses or name == NORM_KERNEL) != (n > 0):
                 raise AssertionError(f"{config.name} {label}: kernel {name} launched {n} times")
         for name, n in per_prefill.items():
             if counts[name] != n * reqs:
@@ -1802,10 +2219,13 @@ def phase_moonshot(device, card: str, cfg) -> dict:
     the experts through the numerics) at rank 0 (4 x 8: the grouped gather
     at every expert site) and under amr_inject (2 requests of
     MOON_INJECT_PROMPT tokens, MOON_INJECT_GEN new: the replay kernel
-    only).  Each run again with request 0 alone (the same bits); rank 0 of
-    each form under the profiler.  Returns each run's launch counts."""
+    only), the latter on the first MOON_INJECT_LAYERS of the 48 layers (the
+    same weights: its 20 s a run at full depth went to this PR's new
+    phases).  Each run again with request 0 alone (the same bits); rank 0
+    of each form under the profiler.  Returns each run's launch counts."""
     import torch
 
+    from repro_torch.models.tree import tree_map
     from repro_torch.numerics import AMRNumerics
 
     rank0 = AMRNumerics("amr_kernel", border=BORDER, rank=0)
@@ -1826,15 +2246,277 @@ def phase_moonshot(device, card: str, cfg) -> dict:
     replicated = {
         "replicate rank 0": Run(rank0, REQUESTS, GEN, GATHERS,
                                 expect=_moe_launches(replicate, SLOTS)),
-        "replicate amr_inject": Run(AMRNumerics("amr_inject", border=BORDER), INJECT_REQUESTS,
-                                    MOON_INJECT_GEN, {"inject_replay"}, MOON_INJECT_PROMPT,
-                                    MOON_INJECT_PROMPT + MOON_INJECT_GEN),
     }
     t0 = time.perf_counter()
     launches.update(serve_model(device, card, replicate, params, replicated, tuple(replicated),
                                 ("replicate rank 0",), {}))
+    cut = dataclasses.replace(replicate, n_layers=MOON_INJECT_LAYERS)
+    inject = {f"replicate amr_inject, {MOON_INJECT_LAYERS} layers": Run(
+        AMRNumerics("amr_inject", border=BORDER), INJECT_REQUESTS, MOON_INJECT_GEN,
+        {"inject_replay"}, MOON_INJECT_PROMPT, MOON_INJECT_PROMPT + MOON_INJECT_GEN)}
+    log(f"[serve] {cfg.name} replicate amr_inject: depth cut to {MOON_INJECT_LAYERS} of "
+        f"{cfg.n_layers} layers (the first layers' weights)")
+    launches.update(serve_model(device, card, cut, {**params, "layers": tree_map(
+        lambda t: t[:MOON_INJECT_LAYERS], params["layers"])}, inject, tuple(inject), (), {}))
     log(f"[serve] {cfg.name} replicate form: {time.perf_counter() - t0:.1f}s")
     params.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
+class FrontRun(NamedTuple):
+    """One run of ``serve_frontend``: its numerics, prompt length and new
+    tokens a request, the kernels it must launch (every other kernel none),
+    the launches each must make in one decode step, and in the encode and
+    prefill before the first step."""
+    numerics: object
+    prompt_len: int
+    gen: int
+    uses: set
+    per_step: dict
+    per_prefill: dict
+
+
+def frontend_inputs(cfg, n_requests: int, prompt_len: int, device, seed: int = 0) -> tuple:
+    """(tokens (n, prompt_len), extra (n, T, D)): random prompts from
+    ``seed`` and the stub frontend's output, standard normals in
+    ``cfg.dtype`` from ``seed + 1`` on the card: a whisper's
+    ``encoder_frames`` frames, a VLM's ``vision_prefix`` patches."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (n_requests, prompt_len))).to(device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    extra = torch.randn((n_requests, cfg.encoder_frames or cfg.vision_prefix, cfg.d_model),
+                        generator=gen, device=device).to(getattr(torch, cfg.dtype))
+    return tokens, extra
+
+
+def generate(cfg, params, tokens, extra, gen: int) -> dict:
+    """The model-level entry points as the conformance decode arm drives
+    them: ``encode`` (an audio model), ``prefill_with_cache`` of the prompts
+    with the extra embeddings at capacity prompt + gen (+ the prefix), then
+    gen - 1 greedy ``decode_step``s (the first new token is the prefill's),
+    the encoder output passed to each.  Returns the new tokens (B, gen),
+    each new token's float32 logits (B, V) on the host, the seconds of the
+    prefill (encode included) and of the decode steps, and the launches of
+    each."""
+    import torch
+
+    from repro_torch.models import decode_step, encode, prefill_with_cache
+
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    B, S = tokens.shape
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = encode(cfg, params, extra) if cfg.encoder_layers else None
+        logits, cache = prefill_with_cache(cfg, params, tokens, S + gen + cfg.vision_prefix,
+                                           extra_embeddings=extra)
+        last = logits[:, -1].float()
+        tok = torch.argmax(last, dim=-1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefill = {k.name: k.launches for k in kernels}
+        toks, lgs = [tok], [last.cpu().numpy()]
+        for _ in range(gen - 1):
+            logits, cache = decode_step(cfg, params, tok[:, None], cache, enc)
+            last = logits[:, -1].float()
+            tok = torch.argmax(last, dim=-1)
+            toks.append(tok)
+            lgs.append(last.cpu().numpy())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return dict(tokens=torch.stack(toks, 1).cpu().numpy(), logits=lgs, prefill_s=t1 - t0,
+                decode_s=t2 - t1, prefill=prefill,
+                decode={k.name: k.launches - prefill[k.name] for k in kernels})
+
+
+def serve_frontend(device, card: str, config, params, runs: dict, profiled: tuple,
+                   n_requests: int = 2) -> dict:
+    """Serve full-width ``config`` (an audio or VLM model, weights
+    ``params``) through its model-level entry points (``generate``) under
+    each ``FrontRun`` of ``runs``: ``n_requests`` prompts with their frames
+    or patches in one batch, then request 0 alone, which must give the same
+    tokens and logits bit for bit.  Each kernel in ``uses`` launches, no
+    other, at the counts the run states; new tokens in range, logits finite.
+    The labels in ``profiled`` once more under the profiler.  Returns each
+    run's launches per decode step, and its results by label."""
+    import torch
+
+    out, launches = {}, {}
+    for label, run in runs.items():
+        cfg = dataclasses.replace(config, numerics=run.numerics)
+        tokens, extra = frontend_inputs(cfg, n_requests, run.prompt_len, device)
+        torch.cuda.reset_peak_memory_stats()
+        res = generate(cfg, params, tokens, extra, run.gen)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = run.gen - 1
+        for name in res["prefill"]:
+            n = res["prefill"][name] + res["decode"][name]
+            if (name in run.uses or name == NORM_KERNEL) != (n > 0):
+                raise AssertionError(f"{cfg.name} {label}: kernel {name} launched {n} times")
+            if name == NORM_KERNEL:
+                continue
+            if res["decode"][name] != run.per_step.get(name, 0) * steps or \
+                    res["prefill"][name] != run.per_prefill.get(name, 0):
+                raise AssertionError(f"{cfg.name} {label}: kernel {name} launched "
+                                     f"{res['prefill'][name]} times in the prefill and "
+                                     f"{res['decode'][name]} in {steps} steps, expected "
+                                     f"{run.per_prefill.get(name, 0)} and "
+                                     f"{run.per_step.get(name, 0)} a step")
+        if not ((0 <= res["tokens"]) & (res["tokens"] < cfg.vocab)).all() or not all(
+                np.isfinite(x).all() and x.shape == (n_requests, cfg.vocab)
+                for x in res["logits"]):
+            raise AssertionError(f"{cfg.name} {label}: tokens out of range or logits "
+                                 f"non-finite or misshapen")
+        solo = generate(cfg, params, tokens[:1], extra[:1], run.gen)
+        diff = max(float(np.abs(x[:1] - y).max()) for x, y in zip(res["logits"], solo["logits"]))
+        if not np.array_equal(solo["tokens"], res["tokens"][:1]) or diff != 0.0:
+            raise AssertionError(f"{cfg.name} {label} request 0: batched {res['tokens'][0]} vs "
+                                 f"solo {solo['tokens'][0]}, max |logit diff| {diff}")
+        per_step = {k: n // steps for k, n in res["decode"].items() if n}
+        launches[label] = per_step
+        out[label] = res
+        n_prompt = n_requests * run.prompt_len
+        log(f"[serve] {cfg.name} {label} on {card}: {n_requests} requests of "
+            f"{run.prompt_len} tokens and {extra.shape[1]} "
+            f"{'frames' if cfg.encoder_layers else 'patches'}, {run.gen} new tokens each; "
+            f"prefill{' (encode and the prefill own encoder pass included)' if cfg.encoder_layers else ''} "
+            f"{n_prompt} prompt tokens in {res['prefill_s']:.3f}s; "
+            f"decode {n_requests * steps} tokens in {steps} steps, {res['decode_s']:.3f}s "
+            f"({n_requests * steps / res['decode_s']:.2f} tok/s, "
+            f"{1e3 * res['decode_s'] / steps:.1f} ms/step); peak memory {peak:.2f} GiB; "
+            f"launches in the prefill {dict((k, n) for k, n in res['prefill'].items() if n)}, "
+            f"a decode step {per_step}; batched == solo bit for bit (request 0 tokens "
+            f"{solo['tokens'][0].tolist()})")
+    for label in profiled:
+        run = runs[label]
+        cfg = dataclasses.replace(config, numerics=run.numerics)
+        tokens, extra = frontend_inputs(cfg, n_requests, run.prompt_len, device)
+
+        def body(_):
+            t0 = time.perf_counter()
+            generate(cfg, params, tokens, extra, run.gen)
+            return (time.perf_counter() - t0) * 1e3
+
+        wall, rows = profile_windows(body, f"{cfg.name} {label}")
+        busy = sum(r[0] for r in rows) / 1e3 if rows else None
+        ours = sum(r[0] for r in rows if "amr_" in r[2] or "inject_replay" in r[2]
+                   or "row_mean_square" in r[2]) / 1e3
+        top = [(round(us / 1e3, 1), n, name[:60]) for us, n, name in rows[:6]]
+        log(f"[profile] {cfg.name} {label} on {card}: prefill + {run.gen - 1} decode steps, "
+            f"{wall:.1f} ms wall, {busy_text(busy, wall)}, hand kernels {ours:.1f} ms; most "
+            f"device ms, launches: {top}")
+    return launches, out
+
+
+def _site_counts(cfg, flat: int, grouped: int, encoder: bool = False) -> tuple[int, int]:
+    """(flat, grouped) AMR sites of one pass of ``cfg``'s decoder (or, with
+    ``encoder``, its encoder): per decoder layer the attention's wq, wk, wv,
+    wo and the MLP's three, with cross-attention xattn's four more, and
+    attn.qk / attn.pv (twice with cross-attention); per encoder layer its
+    attention's four, its MLP's three, attn.qk and attn.pv."""
+    cross = bool(cfg.encoder_layers) and not encoder
+    layers = cfg.encoder_layers if encoder else cfg.n_layers
+    return layers * (flat + 4 * cross), layers * (grouped + 2 * cross)
+
+
+def phase_whisper(device, card: str, cfg) -> dict:
+    """Phase 8d: full-width whisper-small (12 encoder and 12 decoder layers,
+    d_model 768, 12 heads of 64, d_ff 3072 gelu, vocab 51865, tied; random
+    bf16 weights from seed 0) through its model-level entry points (encode,
+    prefill with the frames, greedy decode steps with the encoder output:
+    ``generate``): 2 requests of 1500 random frames and WHISPER_PROMPT-token
+    prompts, WHISPER_GEN new tokens, under exact, rank 0 and rank 8, each
+    batched == solo bit for bit, rank 0 profiled.  The decoder's layers
+    project the cross-attention K and V of the 1500 frames at every step
+    (xattn.wk / wv at M = 3000), as the JAX package's decode step does.
+    Then, in float32 (where the straight-through quantizer of amr_inject
+    and the gather's agree on every operand, as in phase 3's dbrx check),
+    amr_inject on 2 requests of WHISPER_INJECT_PROMPT tokens, WHISPER_INJECT_GEN
+    new: the replay kernel at every AMR site, and its tokens and logits equal
+    rank 0's on the same weights and inputs bit for bit.  Returns each run's
+    launches per decode step."""
+    import torch
+
+    from repro_torch.numerics import AMRNumerics
+
+    rank0 = AMRNumerics("amr_kernel", border=BORDER, rank=0)
+    flat, grouped = _site_counts(cfg, 7, 2)
+    e_flat, e_grouped = _site_counts(cfg, 7, 2, encoder=True)
+    # encode() and the prefill's own encoder pass, then the decoder's prefill
+    pre_flat, pre_grouped = 2 * e_flat + flat, 2 * e_grouped + grouped
+    lut = {"amr_matmul_int8_lut": flat, "amr_matmul_int8_lut_grouped": grouped}
+    lut_pre = {"amr_matmul_int8_lut": pre_flat, "amr_matmul_int8_lut_grouped": pre_grouped}
+    runs = {
+        "exact": FrontRun(AMRNumerics("exact"), WHISPER_PROMPT, WHISPER_GEN, set(), {}, {}),
+        "rank 0": FrontRun(rank0, WHISPER_PROMPT, WHISPER_GEN, GATHERS, lut, lut_pre),
+        f"rank {RANK}": FrontRun(AMRNumerics("amr_kernel", border=BORDER, rank=RANK),
+                                 WHISPER_PROMPT, WHISPER_GEN, {"amr_matmul_int8"},
+                                 {"amr_matmul_int8": flat}, {"amr_matmul_int8": pre_flat}),
+    }
+    params = model_params(device, cfg)
+    launches, _ = serve_frontend(device, card, cfg, params, runs, ("rank 0",))
+    del params
+    torch.cuda.empty_cache()
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    params = model_params(device, f32)
+    replay = {"inject_replay": flat + grouped}
+    inject_runs = {
+        "f32 rank 0": FrontRun(rank0, WHISPER_INJECT_PROMPT, WHISPER_INJECT_GEN, GATHERS, lut,
+                               lut_pre),
+        "f32 amr_inject": FrontRun(AMRNumerics("amr_inject", border=BORDER),
+                                   WHISPER_INJECT_PROMPT, WHISPER_INJECT_GEN,
+                                   {"inject_replay"}, replay,
+                                   {"inject_replay": pre_flat + pre_grouped}),
+    }
+    more, res = serve_frontend(device, card, f32, params, inject_runs, ())
+    launches.update(more)
+    a, b = res["f32 rank 0"], res["f32 amr_inject"]
+    if not np.array_equal(a["tokens"], b["tokens"]) or not all(
+            np.array_equal(x, y) for x, y in zip(a["logits"], b["logits"])):
+        raise AssertionError(f"{cfg.name} float32: amr_inject tokens or logits differ from "
+                             f"rank 0's")
+    log(f"[serve] {cfg.name} float32 on {card}: amr_inject == rank 0 bit for bit (tokens "
+        f"{b['tokens'].tolist()} and logits of every new token)")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_vlm(device, card: str, cfg) -> dict:
+    """Phase 8e: internvl2-76b at full width (d_model 8192, 64 heads of 128,
+    8 KV heads, d_ff 28672 swiglu, vocab 128256, untied, a 256-patch
+    prefix) with its depth cut to VLM_LAYERS of 80 layers (its 141 GB of
+    bf16 weights do not fit the card; 24 layers are 41.1 GB, with 4.2 GB of
+    embedding and head), random bf16 weights from seed 0, through its
+    model-level entry points: 2 requests of 256 random patch embeddings and
+    VLM_PROMPT-token prompts, VLM_GEN new tokens, the KV capacity widened by
+    the prefix; under exact and rank 0, each batched == solo bit for bit,
+    rank 0 profiled.  Returns each run's launches per decode step."""
+    import torch
+
+    from repro_torch.numerics import AMRNumerics
+
+    cut = dataclasses.replace(cfg, n_layers=VLM_LAYERS)
+    flat, grouped = _site_counts(cut, 7, 2)
+    lut = {"amr_matmul_int8_lut": flat, "amr_matmul_int8_lut_grouped": grouped}
+    runs = {
+        "exact": FrontRun(AMRNumerics("exact"), VLM_PROMPT, VLM_GEN, set(), {}, {}),
+        "rank 0": FrontRun(AMRNumerics("amr_kernel", border=BORDER, rank=0), VLM_PROMPT,
+                           VLM_GEN, GATHERS, lut, lut),
+    }
+    torch.cuda.empty_cache()
+    log(f"[serve] {cfg.name}: depth cut to {VLM_LAYERS} of {cfg.n_layers} layers (its "
+        f"{cfg.n_layers} layers do not fit one card in bf16), full width")
+    params = model_params(device, cut)
+    log(f"[serve] {cfg.name}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB of weights on "
+        f"the card")
+    launches, _ = serve_frontend(device, card, cut, params, runs, ("rank 0",))
+    del params
     torch.cuda.empty_cache()
     return launches
 
@@ -1976,7 +2658,9 @@ def _trace_rule(got: list, want: list) -> dict:
     of a rounding tie.  Returns ``ok`` and what was read: the calls, the
     first with a moved index (None: none moved), its moved indices and the
     largest distance of their CPU values from a tie, the largest difference
-    of rounded values up to it, and the calls with a moved index."""
+    of rounded values up to it, and the calls with a moved index; for the
+    first moved index its call's shape, its coordinates and its values
+    (``want``'s, then ``got``'s)."""
     if len(got) != len(want):
         raise AssertionError(f"{len(got)} quantizations against {len(want)}")
     out = {"calls": len(want), "first_moved": None, "moved": 0, "tie_distance": None,
@@ -1990,7 +2674,10 @@ def _trace_rule(got: list, want: list) -> dict:
         if moved.any():
             at = xw[moved]
             out.update(first_moved=i, moved=int(moved.sum()),
-                       tie_distance=float(((at - at.floor()) - 0.5).abs().max()))
+                       tie_distance=float(((at - at.floor()) - 0.5).abs().max()),
+                       first_moved_shape=list(xw.shape),
+                       first_moved_at=moved.nonzero()[0].tolist(),
+                       values=[float(xw[moved][0]), float(xg[moved][0])])
             break
     out["ok"] = out["max_step_diff"] <= PARITY_TRACE_TOL
     return out
@@ -2207,41 +2894,80 @@ def busy_text(busy, wall: float) -> str:
 BACKWARD_OF = {"ssd_scan_bwd": "ssd_scan"}
 
 
-def train_run(device, card: str, cfg, label: str, uses: set, batch: int,
-              seq: int) -> tuple[dict, dict]:
+def _frontend_batch(cfg, data, i: int, device) -> dict:
+    """Batch ``i`` of ``data`` on the card, with the stub frontend's output
+    as ``extra`` for an audio or VLM config (standard normals in
+    ``cfg.dtype`` from seed ``i``: a whisper's encoder frames, a VLM's
+    patches)."""
+    import torch
+
+    b = _train_batch(data, i, device)
+    n = cfg.encoder_frames or cfg.vision_prefix
+    if n:
+        gen = torch.Generator(device=device).manual_seed(i)
+        b["extra"] = torch.randn((b["tokens"].shape[0], n, cfg.d_model), generator=gen,
+                                 device=device).to(getattr(torch, cfg.dtype))
+    return b
+
+
+def train_run(device, card: str, cfg, label: str, uses: set, batch: int, seq: int,
+              twice: bool = False) -> tuple[dict, dict]:
     """One training run of full-width ``cfg`` (random weights from seed 0):
-    a warm step and TRAIN_STEPS timed steps on SyntheticLM batches.  The
-    launch counts are set to 0 before the run and read after it: the kernels
-    in ``uses`` launch, no other; each launches, per step, the count of one
-    forward (run alone, under no_grad, on the first batch) times 2 under
-    ``remat="block"`` (the recompute) and times 1 under ``"none"``, and a
-    backward kernel (``BACKWARD_OF``) as often as one forward launches its
-    forward kernel.  Losses and gradient norms finite.  Then one more step
+    a warm step and TRAIN_STEPS timed steps on SyntheticLM batches (with
+    frames for an audio model, ``_frontend_batch``).  The launch counts are
+    set to 0 before the run and read after it: the kernels in ``uses``
+    launch, no other; each launches, per step, the count of one forward
+    (run alone, under no_grad, on the first batch) times 2 under
+    ``remat="block"`` (the recompute) and times 1 under ``"none"``, less
+    the encoder's count once under "block" (the JAX package recomputes no
+    encoder layer, nor does the port), and a backward kernel
+    (``BACKWARD_OF``) as often as one forward launches its forward kernel.
+    Losses and gradient norms finite.  With ``twice``, the gradients of the
+    first batch computed twice must agree bit for bit.  Then one more step
     under the profiler.  Returns the launches per step and in the run, by
     kernel."""
     import torch
 
     from repro_torch.data import SyntheticLM
-    from repro_torch.models import forward
-    from repro_torch.train.steps import make_train_state, make_train_step
+    from repro_torch.models import encode, forward
+    from repro_torch.models.tree import tree_items, tree_map
+    from repro_torch.train.steps import make_grads_step, make_train_state, make_train_step
 
     t_run = time.perf_counter()
     kernels = all_kernels()
     data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch, seed=0)
     state = make_train_state(cfg, 0, device=device)
     step = make_train_step(cfg)
+    first = _frontend_batch(cfg, data, 0, device)
+    per_encoder = {k.name: 0 for k in kernels}
     for k in kernels:
         k.launches = 0
     with torch.no_grad():
-        forward(cfg, state.params, _train_batch(data, 0, device)["tokens"])
+        if cfg.encoder_layers:
+            encode(cfg, state.params, first["extra"])
+            torch.cuda.synchronize()
+            per_encoder = {k.name: k.launches for k in kernels}
+        forward(cfg, state.params, first["tokens"], first.get("extra"))
     torch.cuda.synchronize()
-    per_forward = {k.name: k.launches for k in kernels}
+    per_forward = {k.name: k.launches - per_encoder[k.name] for k in kernels}
+    deterministic = ""
+    if twice:
+        grads = tree_map(lambda g: g.cpu(), make_grads_step(cfg)(state.params, first))
+        again = make_grads_step(cfg)(state.params, first)
+        moved = [k for (k, g), (_, h) in zip(tree_items(grads), tree_items(again))
+                 if not torch.equal(g, h.cpu())]
+        if moved:
+            raise AssertionError(f"[train] {cfg.name} {label}: two backward passes differ in "
+                                 f"{moved}")
+        deterministic = f"; two backward passes bit for bit ({len(tree_items(grads))} leaves)"
+        del grads, again
+        torch.cuda.empty_cache()
     for k in kernels:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     times, losses, norms = [], [], []
     for i in range(1 + TRAIN_STEPS):
-        b = _train_batch(data, i, device)
+        b = _frontend_batch(cfg, data, i, device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step(state, b)
@@ -2254,8 +2980,11 @@ def train_run(device, card: str, cfg, label: str, uses: set, batch: int,
     mult = 2 if cfg.remat == "block" else 1
     for name, n in counts.items():
         want = (per_forward[BACKWARD_OF[name]] if name in BACKWARD_OF
-                else mult * per_forward[name])
-        if (name in uses) != (n > 0) or n != (1 + TRAIN_STEPS) * want:
+                else mult * per_forward[name] - (mult - 1) * per_encoder[name])
+        if name == NORM_KERNEL:
+            if n == 0:
+                raise AssertionError(f"[train] {cfg.name} {label}: no norm kernel launched")
+        elif (name in uses) != (n > 0) or n != (1 + TRAIN_STEPS) * want:
             raise AssertionError(f"[train] {cfg.name} {label} remat {cfg.remat}: kernel {name} "
                                  f"launched {n} times in {1 + TRAIN_STEPS} steps, not "
                                  f"{1 + TRAIN_STEPS} x {want}; one forward launches "
@@ -2264,7 +2993,7 @@ def train_run(device, card: str, cfg, label: str, uses: set, batch: int,
         raise AssertionError(f"[train] {cfg.name} {label}: losses {losses}, grad norms {norms}")
     ms = float(np.median(times[1:])) * 1e3
     state, wall, busy, top = _profiled_step(step, state,
-                                            _train_batch(data, 1 + TRAIN_STEPS, device))
+                                            _frontend_batch(cfg, data, 1 + TRAIN_STEPS, device))
     per_step = {k: n // (1 + TRAIN_STEPS) for k, n in counts.items() if n}
     log(f"[train] {cfg.name} {label} remat {cfg.remat} on {card}: {batch} x {seq} tokens a step, "
         f"{ms:.1f} ms per step (median of {TRAIN_STEPS} after a warm step of "
@@ -2272,7 +3001,7 @@ def train_run(device, card: str, cfg, label: str, uses: set, batch: int,
         f"{peak:.2f} GiB; profiled step {wall:.1f} ms wall, {busy_text(busy, wall)} (most "
         f"device ms, launches: {top}); losses "
         f"{[round(x, 4) for x in losses]}, grad norms {[round(x, 3) for x in norms]}; "
-        f"launches per step {per_step}; run {time.perf_counter() - t_run:.1f}s")
+        f"launches per step {per_step}{deterministic}; run {time.perf_counter() - t_run:.1f}s")
     del state
     torch.cuda.empty_cache()
     return per_step, counts
@@ -2285,9 +3014,18 @@ def phase_train_full(device, card: str) -> tuple[dict, dict]:
     full-width mamba2-370m at rank 0 and rank 8, batch 4, seq 2048 (8
     chunks a sequence), and full-width zamba2-1.2b at rank 8, batch 2, seq
     1024, both under remat "block": the SSD kernel twice per Mamba2 layer a
-    step (the forward and the recompute), its backward once.  Returns each
-    run's launches per step, and in the run, by label."""
-    from repro_torch.configs import amr_paper, gemma3_1b, mamba2_370m, zamba2_1p2b
+    step (the forward and the recompute), its backward once; full-width
+    whisper-small at rank 0 and rank 8 on 2 x 1500 frames and 2 x
+    WHISPER_TRAIN_SEQ decoder tokens; moonshot-v1-16b-a3b at full width with
+    its depth cut to MOON_TRAIN_LAYERS of 48 layers, 2 x MOON_TRAIN_SEQ
+    tokens (T K = 6144 > 4096: the batch dispatched at once, C = 120, some
+    assignments dropped), as registered (local, exact experts) at rank 8 and
+    in the replicate form at rank 0 (the grouped gather at the expert sites
+    and its straight-through backward), where two backward passes must give
+    the same bits; all under remat "block".  Returns each run's launches per
+    step, and in the run, by label."""
+    from repro_torch.configs import (amr_paper, gemma3_1b, mamba2_370m, moonshot_16b_a3b,
+                                     whisper_small, zamba2_1p2b)
     from repro_torch.numerics import AMRNumerics
 
     rank8 = AMRNumerics("amr_kernel", border=BORDER, rank=RANK)
@@ -2308,20 +3046,38 @@ def phase_train_full(device, card: str) -> tuple[dict, dict]:
     plan.insert(4, ("amr-paper-100m amr_noise", dataclasses.replace(
         amr_paper.CONFIG, numerics=AMRNumerics("amr_noise", border=BORDER)), "amr_noise", set(),
         TRAIN_BATCH, TRAIN_SEQ))
+    rank0 = AMRNumerics("amr_kernel", border=BORDER, rank=0)
+    plan += [(f"whisper-small {label}", dataclasses.replace(whisper_small.CONFIG, numerics=nm),
+              label, uses, 2, WHISPER_TRAIN_SEQ)
+             for label, nm, uses in (("rank 0", rank0, GATHERS),
+                                     (f"rank {RANK}", rank8, {"amr_matmul_int8"}))]
+    moon = dataclasses.replace(moonshot_16b_a3b.CONFIG, n_layers=MOON_TRAIN_LAYERS)
+    moon_replicate = dataclasses.replace(moon, numerics=rank0, moe=dataclasses.replace(
+        moon.moe, dispatch_shard="replicate"))
+    plan += [(f"moonshot-v1-16b-a3b local rank {RANK}", dataclasses.replace(moon, numerics=rank8),
+              f"local rank {RANK}", {"amr_matmul_int8"}, 2, MOON_TRAIN_SEQ),
+             ("moonshot-v1-16b-a3b replicate rank 0", moon_replicate, "replicate rank 0", GATHERS,
+              2, MOON_TRAIN_SEQ)]
+    log(f"[train] moonshot-v1-16b-a3b: depth cut to {MOON_TRAIN_LAYERS} of 48 layers, full "
+        f"width (its 48 layers' weights and AdamW state do not fit one card)")
     per_step, totals = {}, {}
     for key, cfg, label, uses, batch, seq in plan:
-        per_step[key], totals[key] = train_run(device, card, cfg, label, uses, batch, seq)
+        per_step[key], totals[key] = train_run(device, card, cfg, label, uses, batch, seq,
+                                               twice=cfg is moon_replicate)
     return per_step, totals
 
 
 def phase_train_restart(device) -> None:
     """Phase 9c: ``FaultTolerantLoop`` on full-width amr-paper-100m under
-    amr_inject (2 x 256 tokens) and on full-width mamba2-370m at rank 0 (2 x
-    2048: the SSD kernel and its backward), checkpoints every 2 steps: 4
-    steps straight through, then 2 steps, a raised failure, a restore from
-    the step-2 checkpoint and 2 more.  The float32 losses and every leaf of
-    the final states equal bit for bit."""
-    from repro_torch.configs import amr_paper, mamba2_370m
+    amr_inject (2 x 256 tokens), on full-width mamba2-370m at rank 0 (2 x
+    2048: the SSD kernel and its backward) and on moonshot-v1-16b-a3b at
+    full width, MOON_RESTART_LAYERS layers, replicate form at rank 0 (2 x
+    512: the dispatch with drops; 3 steps, the straight run without the
+    loop: its 29 GB state takes about 32 s a checkpoint), checkpoints every
+    2 steps: 4 steps straight through, then 2 steps, a raised failure, a
+    restore from the step-2 checkpoint and 2 more.  The float32 losses and
+    every leaf of the final states equal bit for bit."""
+    from repro_torch.configs import amr_paper, mamba2_370m, moonshot_16b_a3b
     from repro_torch.numerics import AMRNumerics
 
     restart_run(device, dataclasses.replace(
@@ -2334,18 +3090,29 @@ def phase_train_restart(device) -> None:
     restart_run(device, dataclasses.replace(
         mamba2_370m.CONFIG, numerics=AMRNumerics("amr_kernel", border=BORDER, rank=0)),
         "rank 0", 2, SSD_CONTEXT)
+    moon = dataclasses.replace(moonshot_16b_a3b.CONFIG, n_layers=MOON_RESTART_LAYERS)
+    restart_run(device, dataclasses.replace(
+        moon, numerics=AMRNumerics("amr_kernel", border=BORDER, rank=0),
+        moe=dataclasses.replace(moon.moe, dispatch_shard="replicate")),
+        f"replicate rank 0, {MOON_RESTART_LAYERS} of 48 layers", 2, MOON_TRAIN_SEQ, steps=3,
+        loop_straight=False)
 
 
-def restart_run(device, cfg, label: str, batch: int, seq: int) -> None:
-    """4 steps straight and 2 + a raised failure + a restore + 2 of ``cfg``
-    through ``FaultTolerantLoop``: the same losses and final state, bit for
-    bit."""
+def restart_run(device, cfg, label: str, batch: int, seq: int, steps: int = 4,
+                loop_straight: bool = True) -> None:
+    """``steps`` steps of ``cfg`` straight and 2 + a raised failure + a
+    restore + the rest through ``FaultTolerantLoop`` (checkpoints every 2
+    steps, and at the end): the same losses and final state, bit for bit.
+    With ``loop_straight`` False the straight run takes the train steps
+    alone, without the loop's checkpoints (a large state writes at about
+    0.9 GB/s on the card's machine).  The straight run's final state waits
+    on the host while the restarted one runs."""
     import tempfile
 
     import torch
 
     from repro_torch.data import SyntheticLM
-    from repro_torch.models.tree import tree_items
+    from repro_torch.models.tree import tree_items, tree_map
     from repro_torch.runtime import FaultTolerantLoop
     from repro_torch.train.steps import make_train_state, make_train_step
 
@@ -2364,30 +3131,38 @@ def restart_run(device, cfg, label: str, batch: int, seq: int) -> None:
             losses[i] = float(m["loss"])
             return state, m
 
+        t0 = time.perf_counter()
+        if not (fail or loop_straight):
+            state = make_train_state(cfg, 0, device=device)
+            for i in range(steps):
+                state, _ = step_fn(state, _train_batch(data, i, device))
+            return state, losses, time.perf_counter() - t0
         with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
-            t0 = time.perf_counter()
             loop = FaultTolerantLoop(
                 ckpt_dir=ckpt, make_state=lambda: make_train_state(cfg, 0, device=device),
                 step_fn=step_fn, batch_at=lambda i: _train_batch(data, i, device),
                 ckpt_every=2, keep=1)
-            res = loop.run(4, log=log)
+            res = loop.run(steps, log=log)
             seconds = time.perf_counter() - t0
-        if res.steps_done != 4 or res.restarts != int(fail) or res.preempted:
+        if res.steps_done != steps or res.restarts != int(fail) or res.preempted:
             raise AssertionError(f"[restart] {res.steps_done} steps, {res.restarts} restarts")
         return res.final_state, losses, seconds
 
     straight, l_straight, s1 = run(False)
+    straight = tree_map(lambda t: t.cpu(), straight)
+    torch.cuda.empty_cache()
     restarted, l_restarted, s2 = run(True)
     if l_straight != l_restarted:
         raise AssertionError(f"[restart] losses straight {l_straight} vs restarted {l_restarted}")
-    items = tree_items(restarted)
+    items = dict(tree_items(restarted))
     for key, a in tree_items(straight):
-        if not torch.equal(a, dict(items)[key]):
+        if not torch.equal(a, items[key].cpu()):
             raise AssertionError(f"[restart] leaf {key} differs after the restart")
-    log(f"[restart] {cfg.name} {label}, {batch} x {seq} tokens a step: 4 steps straight "
-        f"({s1:.1f}s) and 2 + failure + restore + 2 ({s2:.1f}s): losses {l_straight} bit for "
-        f"bit, all {len(items)} leaves of the final state bit for bit")
-    del straight, restarted
+    log(f"[restart] {cfg.name} {label}, {batch} x {seq} tokens a step: {steps} steps straight "
+        f"({'through the loop' if loop_straight else 'train steps alone'}, {s1:.1f}s) and 2 + "
+        f"failure + restore + {steps - 2} ({s2:.1f}s): losses {l_straight} bit for bit, all "
+        f"{len(items)} leaves of the final state bit for bit")
+    del straight, restarted, items
     torch.cuda.empty_cache()
 
 
@@ -2487,7 +3262,7 @@ def training_kernel_rows(device, int_rate: float) -> list[dict]:
 # gather wrappers zero-filled their outputs with one a call)
 PROFILE_FAMILIES = {"gather kernels": "amr_lut", "low-rank kernel": "amr_lowrank",
                     "replay kernel": "inject_replay", "SSD scan": "ssd_scan",
-                    "memsets": "Memset"}
+                    "norm kernel": "row_mean_square", "memsets": "Memset"}
 
 
 def profile_serve(device, card: str, cfg, params, prompts, gen: int, capacity: int) -> None:
@@ -2520,7 +3295,8 @@ def profile_serve(device, card: str, cfg, params, prompts, gen: int, capacity: i
             f"idle share not measured (no window recorded device time)")
         return
     ours = sum(r[0] for r in rows
-               if "amr_" in r[2] or "inject_replay" in r[2] or "ssd_scan" in r[2])
+               if "amr_" in r[2] or "inject_replay" in r[2] or "ssd_scan" in r[2]
+               or "row_mean_square" in r[2])
     log(f"[profile] {cfg.name} {cfg.numerics} on {card}: {SLOTS} prefills + "
         f"{eng.steps_done} decode steps, {wall_us / 1e3:.2f} ms wall, "
         f"device busy {busy_us / 1e3:.2f} ms "
@@ -2542,9 +3318,12 @@ def main(argv: list[str] | None = None) -> int:
                              "this tree's in this call")
     parser.add_argument("--time-kernels", type=Path, default=None, metavar="SRC",
                         help=argparse.SUPPRESS)  # one timing process of --parent's A/B
+    parser.add_argument("--time-serve", type=Path, default=None, metavar="SRC",
+                        help=argparse.SUPPRESS)  # one serving process of --parent's A/B
     args = parser.parse_args(argv)
-    if args.time_kernels is not None:
-        sys.path.insert(0, str(args.time_kernels.resolve()))
+    for src in (args.time_kernels, args.time_serve):
+        if src is not None:
+            sys.path.insert(0, str(src.resolve()))
     try:
         import torch
     except ImportError:
@@ -2564,13 +3343,17 @@ def main(argv: list[str] | None = None) -> int:
     if args.time_kernels is not None:
         print(json.dumps(time_kernels()), flush=True)
         return 0
+    if args.time_serve is not None:
+        print(json.dumps(time_serve()), flush=True)
+        return 0
     if args.parent is not None and not (args.parent / "src" / "repro_torch").is_dir():
         print(f"chip_smoke: --parent {args.parent} holds no src/repro_torch", file=sys.stderr)
         return 1
     device = torch.device("cuda")
     t_start = time.perf_counter()
 
-    from repro_torch.configs import gemma3_1b, gemma_2b, mamba2_370m, moonshot_16b_a3b, zamba2_1p2b
+    from repro_torch.configs import (gemma3_1b, gemma_2b, internvl2_76b, mamba2_370m,
+                                     moonshot_16b_a3b, whisper_small, zamba2_1p2b)
 
     phase_build()
     card = card_line()
@@ -2581,11 +3364,13 @@ def main(argv: list[str] | None = None) -> int:
     if args.parent is not None:
         t0 = time.perf_counter()
         phase_ab(args.parent.resolve())
+        phase_ab_serve(args.parent.resolve())
         log(f"[ab] phase {time.perf_counter() - t0:.1f}s")
     else:
         log("[ab] no --parent tree: the same-call A/B against the parent's kernels is not run")
     t0 = time.perf_counter()
     phase_reference(device)
+    phase_reference_frontends(device)
     log(f"[reference] phase {time.perf_counter() - t0:.1f}s")
     gemma_params = model_params(device, gemma_2b.CONFIG)
     t0 = time.perf_counter()
@@ -2605,6 +3390,12 @@ def main(argv: list[str] | None = None) -> int:
     noise = noise_moments(device, card, gemma_2b.CONFIG, moonshot_16b_a3b.CONFIG)
     launches["moonshot-v1-16b-a3b"] = phase_moonshot(device, card, moonshot_16b_a3b.CONFIG)
     log(f"[moonshot-v1-16b-a3b] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    launches["whisper-small"] = phase_whisper(device, card, whisper_small.CONFIG)
+    log(f"[whisper-small] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    launches["internvl2-76b"] = phase_vlm(device, card, internvl2_76b.CONFIG)
+    log(f"[internvl2-76b] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_train_parity(device)
     phase_train_parity_ssm(device)
@@ -2641,11 +3432,18 @@ def main(argv: list[str] | None = None) -> int:
                          "none: no Pallas kernel; the JAX package differentiates its jnp scan "
                          "(src/repro/models/ssm.py:76) with jax.grad",
                          ("train", "mamba2-370m rank 0")),
+        # the norms of a gemma-2b decode step (4 rows of 2048); launches from
+        # that model's rank-0 run
+        "row_mean_square": (rows["norm"][0],
+                            "src/repro_torch/kernels/rms_norm/csrc/row_mean_square.cu",
+                            "none: no Pallas kernel; the JAX package's rms_norm computes "
+                            "jnp.mean(x * x) (src/repro/models/layers.py:44) and XLA fuses it",
+                            ("gemma-2b", "rank 0")),
     }
     # the fused attention kernels: the op at the long-decode case, border 8;
     # launches from that op call, and their launches in every served run of
     # phase 5 (0: no model dispatches the op)
-    served = {name: sum(c[name] for model, runs in launches.items() if model != "train"
+    served = {name: sum(c.get(name, 0) for model, runs in launches.items() if model != "train"
                         for c in runs.values())
               for name in ("attn_fused_lut", "attn_fused_inject")}
     launches["attn_fused"] = attn_launches
@@ -2670,6 +3468,12 @@ def main(argv: list[str] | None = None) -> int:
                                           for label, counts in launches["zamba2-1.2b"].items()},
                  "launches_moonshot": {label: counts[k.name] for label, counts
                                        in launches["moonshot-v1-16b-a3b"].items()},
+                 "launches_per_step_whisper_small": {
+                     label: counts.get(k.name, 0)
+                     for label, counts in launches["whisper-small"].items()},
+                 "launches_per_step_internvl2_76b": {
+                     label: counts.get(k.name, 0)
+                     for label, counts in launches["internvl2-76b"].items()},
                  "launches_per_train_step": {label: per_step.get(k.name, 0)
                                              for label, per_step in train.items()}}
         if model == "attn_fused":

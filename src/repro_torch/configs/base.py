@@ -1,7 +1,8 @@
 """Model architecture descriptor, mirroring the JAX package's ``configs/base.py``.
 
 Only the fields the ported paths (the dense decoder, the Mamba2 SSM and
-hybrid families, the MoE family) read are kept; they carry
+hybrid families, the MoE family, the audio encoder-decoder and the VLM's
+vision prefix) read are kept; they carry
 the JAX package's names and defaults so that a parity test can compare
 the two configs field by field.  ``numerics`` holds one ``AMRNumerics``
 design point for every matmul of the model, or a site- and layer-resolved
@@ -71,6 +72,11 @@ class ModelConfig:
     moe: MoEConfig | None = None         # set: an MoE layer in place of each MLP
     ssm: SSMConfig | None = None
     mlp_act: Literal["swiglu", "geglu", "gelu"] = "swiglu"
+    # enc-dec (whisper): the encoder takes precomputed frame embeddings (a stub frontend)
+    encoder_layers: int = 0
+    encoder_frames: int = 0              # the encoder's fixed sequence (1500 for whisper)
+    # vlm: a prefix of precomputed patch embeddings (a stub frontend)
+    vision_prefix: int = 0
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"

@@ -13,6 +13,8 @@ _MODULES = {
     "zamba2-1.2b": "zamba2_1p2b",
     "dbrx-132b": "dbrx_132b",
     "moonshot-v1-16b-a3b": "moonshot_16b_a3b",
+    "whisper-small": "whisper_small",
+    "internvl2-76b": "internvl2_76b",
 }
 
 ARCH_NAMES = list(_MODULES)

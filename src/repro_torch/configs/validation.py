@@ -2,20 +2,15 @@
 
 The port of the JAX package's ``configs/validation.py``: ``validate_config``
 checks every invariant the model assembly relies on (GQA head grouping,
-the SSM's heads and groups, the MoE's top-k) and raises ``ValueError``
-naming the config's fields, before a shrink that breaks one fails deep in
-a reshape.  The checks of fields the port's config does not carry (an
-encoder, a vision prefix) are left out with the families that need them;
-a config of such a family is refused by name.
+the SSM's heads and groups, the MoE's top-k, the encoder's frames, the
+vision prefix) and raises ``ValueError`` naming the config's fields,
+before a shrink that breaks one fails deep in a reshape.
 """
 from __future__ import annotations
 
 from .base import ModelConfig
 
 __all__ = ["validate_config"]
-
-_UNPORTED_FAMILIES = ("audio", "vlm")
-
 
 def _fail(cfg: ModelConfig, msg: str) -> None:
     raise ValueError(f"config {cfg.name!r}: {msg}")
@@ -33,7 +28,8 @@ def validate_config(cfg: ModelConfig) -> ModelConfig:
                    f"({cfg.pattern.kinds} x {cfg.pattern.n_repeat}) but "
                    f"n_layers={cfg.n_layers}")
 
-    if any(k in ("full", "swa", "shared_attn", "cross") for k in kinds):
+    has_attn = any(k in ("full", "swa", "shared_attn", "cross") for k in kinds)
+    if has_attn or cfg.encoder_layers:
         if cfg.n_heads <= 0 or cfg.n_kv_heads <= 0 or cfg.head_dim <= 0:
             _fail(cfg, f"attention needs positive n_heads/n_kv_heads/head_dim, "
                        f"got {cfg.n_heads}/{cfg.n_kv_heads}/{cfg.head_dim}")
@@ -74,6 +70,11 @@ def validate_config(cfg: ModelConfig) -> ModelConfig:
 
     if cfg.family in ("ssm", "hybrid") and cfg.ssm is None:
         _fail(cfg, f"family {cfg.family!r} but cfg.ssm is None")
-    if cfg.family in _UNPORTED_FAMILIES:
-        _fail(cfg, f"family {cfg.family!r} is not ported yet")
+    if cfg.family == "audio" and not cfg.encoder_layers:
+        _fail(cfg, "family 'audio' but encoder_layers == 0")
+    if cfg.encoder_layers and cfg.encoder_frames <= 0:
+        _fail(cfg, f"encoder_layers={cfg.encoder_layers} needs "
+                   f"encoder_frames > 0, got {cfg.encoder_frames}")
+    if cfg.family == "vlm" and cfg.vision_prefix <= 0:
+        _fail(cfg, "family 'vlm' but vision_prefix == 0")
     return cfg

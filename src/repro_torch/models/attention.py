@@ -1,21 +1,28 @@
 """GQA/MQA attention with qk-norm, sliding windows, RoPE and a per-slot KV cache.
 
-The port of the JAX package's ``models/attention.py`` for self-attention
-layers, global (``window`` 0) and sliding-window (``window`` > 0):
+The port of the JAX package's ``models/attention.py``: self-attention
+layers, global (``window`` 0) and sliding-window (``window`` > 0), and the
+decoder's cross-attention to an encoder's output:
 
-  * ``attend_full``    — training / forward over a whole sequence (causal);
+  * ``attend_full``    — training / forward over a whole sequence (causal;
+    ``causal=False`` is the encoder's bidirectional form);
   * ``attend_prefill`` — the same, also building the decode KV cache;
-  * ``attend_decode``  — one token per row against the cache.
+  * ``attend_decode``  — one token per row against the cache;
+  * ``encode_cross_kv`` / ``attend_cross`` — a decoder layer's K and V over
+    the encoder frames (sites ``xattn.wk`` / ``xattn.wv``), and its queries
+    against them.  Query and KV heads are equal there, so cross-attention
+    runs the GQA helpers with group size 1 and shares the ``attn.qk`` /
+    ``attn.pv`` sites with self-attention, as in the JAX package.
 
 Cache layout: (batch, capacity, n_kv, head_dim).  A sliding-window layer's
 cache is a ring: token t lives at slot t % capacity, and once the ring is
 full every slot is live.  Under an approximate numerics policy the score
 (``attn.qk``) and value (``attn.pv``) contractions go through the numerics
 seam with the GQA group folded into the row dim; exact numerics keep the
-plain einsums.  A causal prompt of ``_CHUNKED_THRESHOLD`` tokens or more
-whose length is a multiple of ``_Q_CHUNK`` runs in query blocks
-(``_chunked_attention``), as the JAX package's does; every other length
-runs in one block.
+plain einsums, one request at a time (``approx_matmul.per_request``).  A
+causal prompt of ``_CHUNKED_THRESHOLD`` tokens or more whose length is a
+multiple of ``_Q_CHUNK`` runs in query blocks (``_chunked_attention``), as
+the JAX package's does; every other length runs in one block.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import dataclasses
 import torch
 
 from repro_torch.numerics import AMRNumerics, approx_matmul, resolve_numerics
+from repro_torch.numerics.approx_matmul import per_request
 
 from .layers import apply_rope, dense, rms_norm
 
@@ -63,14 +71,15 @@ def _seam_scores(q, k, numerics: AMRNumerics):
 
 def _gqa_scores(q, k, numerics=None):
     """q: (B, S, Hq, D), k: (B, T, Hkv, D) -> (B, Hq, S, T); a policy
-    resolves at site ``attn.qk``."""
+    resolves at site ``attn.qk``; exact, one product per request."""
     numerics = resolve_numerics(numerics, "attn.qk")
     if numerics is not None and not numerics.is_exact():
         return _seam_scores(q, k, numerics)
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     g = Hq // Hkv
-    scores = torch.einsum("bskgd,btkd->bkgst", q.reshape(B, S, Hkv, g, D), k) / (D ** 0.5)
+    scores = per_request(lambda a, b: torch.einsum("bskgd,btkd->bkgst", a, b),
+                         q.reshape(B, S, Hkv, g, D), k) / (D ** 0.5)
     return scores.reshape(B, Hkv * g, S, k.shape[1])
 
 
@@ -89,14 +98,15 @@ def _seam_combine(probs, v, numerics: AMRNumerics):
 
 def _gqa_combine(probs, v, numerics=None):
     """probs: (B, Hq, S, T), v: (B, T, Hkv, D) -> (B, S, Hq, D); a policy
-    resolves at site ``attn.pv``."""
+    resolves at site ``attn.pv``; exact, one product per request."""
     numerics = resolve_numerics(numerics, "attn.pv")
     if numerics is not None and not numerics.is_exact():
         return _seam_combine(probs, v, numerics)
     B, Hq, S, T = probs.shape
     Hkv = v.shape[2]
     g = Hq // Hkv
-    out = torch.einsum("bkgst,btkd->bskgd", probs.reshape(B, Hkv, g, S, T), v)
+    out = per_request(lambda a, b: torch.einsum("bkgst,btkd->bskgd", a, b),
+                      probs.reshape(B, Hkv, g, S, T), v)
     return out.reshape(B, S, Hq, v.shape[-1])
 
 
@@ -141,18 +151,65 @@ def _causal_attention(q, k, v, window: int, dtype, numerics):
     return _attend_rows(q, k, v, torch.arange(S, device=q.device), window, dtype, numerics)
 
 
+def _bidirectional_attention(q, k, v, dtype, numerics):
+    """Every query against every key: the JAX package's all-true mask, in
+    one block at any length."""
+    scores = _gqa_scores(q, k, numerics).float()
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return _gqa_combine(probs, v, numerics)
+
+
 def attend_full(params: dict, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
-                theta: float, qk_norm: bool = False, window: int = 0,
+                theta: float, qk_norm: bool = False, window: int = 0, causal: bool = True,
                 numerics=None, eps: float = 1e-6) -> torch.Tensor:
-    """Causal self-attention over the full sequence, within ``window``
-    tokens when it is > 0."""
+    """Self-attention over the full sequence: causal, within ``window``
+    tokens when it is > 0; ``causal=False`` gives the bidirectional form of
+    an encoder stack (never the chunked path, as in the JAX package)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions, theta,
                            qk_norm, numerics, eps)
-    out = _causal_attention(q, k, v, window, x.dtype, numerics)
+    if causal:
+        out = _causal_attention(q, k, v, window, x.dtype, numerics)
+    else:
+        out = _bidirectional_attention(q, k, v, x.dtype, numerics)
     return dense(out.reshape(B, S, n_heads * head_dim), params["wo"], numerics,
                  site="attn.wo")
+
+
+def cross_attention_specs(d_model: int, n_heads: int, head_dim: int, dtype, shape) -> dict:
+    """The JAX package's ``init_cross_attention`` leaves as (shape, dtype,
+    std) specs: ``wq``, ``wk``, ``wv`` (D, H Dh) and ``wo`` (H Dh, D), with
+    as many KV heads as query heads; ``shape`` adds the layer stacking."""
+    HD = n_heads * head_dim
+    return {
+        "wq": (shape(d_model, HD), dtype, d_model ** -0.5),
+        "wk": (shape(d_model, HD), dtype, d_model ** -0.5),
+        "wv": (shape(d_model, HD), dtype, d_model ** -0.5),
+        "wo": (shape(HD, d_model), dtype, HD ** -0.5),
+    }
+
+
+def encode_cross_kv(params: dict, enc_out: torch.Tensor, *, n_heads: int, head_dim: int,
+                    numerics=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """A decoder layer's K and V (B, T, H, Dh) over the encoder output
+    enc_out (B, T, D), at the sites ``xattn.wk`` and ``xattn.wv``."""
+    B, T, _ = enc_out.shape
+    k = dense(enc_out, params["wk"], numerics, site="xattn.wk").reshape(B, T, n_heads, head_dim)
+    v = dense(enc_out, params["wv"], numerics, site="xattn.wv").reshape(B, T, n_heads, head_dim)
+    return k, v
+
+
+def attend_cross(params: dict, x: torch.Tensor, enc_kv: tuple[torch.Tensor, torch.Tensor], *,
+                 n_heads: int, head_dim: int, numerics=None) -> torch.Tensor:
+    """Decoder cross-attention, x (B, S, D) against ``enc_kv`` (K, V from
+    ``encode_cross_kv``), unmasked; the queries at ``xattn.wq``, the output
+    at ``xattn.wo``, the products at ``attn.qk`` / ``attn.pv``."""
+    B, S, _ = x.shape
+    q = dense(x, params["wq"], numerics, site="xattn.wq").reshape(B, S, n_heads, head_dim)
+    k, v = enc_kv
+    out = _bidirectional_attention(q, k, v, x.dtype, numerics)
+    return dense(out.reshape(B, S, n_heads * head_dim), params["wo"], numerics, site="xattn.wo")
 
 
 @dataclasses.dataclass

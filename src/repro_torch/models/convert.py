@@ -3,8 +3,10 @@ port's layout.
 
 The JAX package's ``init_params`` tree, exported with
 ``jax.tree.map(np.asarray, params)``, has the same nesting, shapes and
-dtypes as the port's (``model.param_specs``), so both packages can compute
-on the same weights; the float32 leaves (norm scales, the SSM's ``a_log``,
+dtypes as the port's (``model.param_specs``), whisper's stacked
+``encoder`` tree, ``enc_norm`` and each layer's ``xattn`` / ``ln_x`` and a
+VLM's ``vision_proj`` included, so both packages can compute on the same
+weights; the float32 leaves (norm scales, the SSM's ``a_log``,
 ``dt_bias``, ``d_skip``, the MoE router) stay float32.  bfloat16 arrays
 arrive as ``ml_dtypes.bfloat16`` numpy arrays, which torch cannot read
 directly; they are reinterpreted

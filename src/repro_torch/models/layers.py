@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.rms_norm.kernel import mean_square
 from repro_torch.numerics import approx_matmul, resolve_numerics
 from repro_torch.numerics.approx_matmul import matmul_exact
 
@@ -19,7 +20,7 @@ def dense(x: torch.Tensor, w: torch.Tensor, numerics=None, site: str | None = No
     ``site`` labels the call site (e.g. ``"mlp.w_gate"``); a site-resolved
     policy resolves here against it and the ambient layer.  x keeps its
     leading (request) dims, so the float products that run one request a
-    call (``approx_matmul._per_request``) see them.
+    call (``approx_matmul.per_request``) see them.
     """
     numerics = resolve_numerics(numerics, site)
     if numerics is None or numerics.is_exact():
@@ -28,10 +29,13 @@ def dense(x: torch.Tensor, w: torch.Tensor, numerics=None, site: str | None = No
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim in float32, back in x's dtype.  The mean
+    square is the row kernel's on CUDA (``kernels.rms_norm``): a row sums in
+    the same order in any batch, so a served request's norm is the same
+    alone and batched."""
     dtype = x.dtype
     x = x.float()
-    var = torch.mean(x * x, dim=-1, keepdim=True)
-    out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    out = x * torch.rsqrt(mean_square(x) + eps) * (1.0 + scale.float())
     return out.to(dtype)
 
 

@@ -34,6 +34,18 @@ adds each token's K contributions in ascending expert id, rounding to
 ``x``'s dtype after each add (the order of the JAX package's scatter-add
 over the sorted list), with no atomic ``index_add_``.
 
+**The same bits on every backward pass.**  The scatter into the capacity
+buffer and the combine's gather out of it are row gathers whose backward
+passes sum in a fixed order (``_GatherRows``): a token's gradient adds its
+K buffer rows' gradients in ascending expert id from zero (the mirror of
+the combine, and the order of the JAX package's scatter-add), and a buffer
+row's gradient is the one route it came from.  A dropped route reads and
+writes a zero row of its own.  Where another backward of the layer
+scatters (the top-k's sort, the weights' reorder by expert id), each
+place receives one value; no backward adds two floats into one place in
+an order the hardware picks, so two backward passes on the card, and a
+training run restarted from a checkpoint, give the same bits.
+
 The router and the top-k stay exact: routing decisions are sensitive to
 small logit changes, and the paper's technique targets the bulk matmuls.
 Ties among equal probabilities go to the lower expert index, as
@@ -112,39 +124,68 @@ def _experts(params: dict, xbuf: torch.Tensor, numerics) -> torch.Tensor:
     return mm((F.silu(g) * u).to(dtype), params["w_down"], SITES[2])
 
 
+class _GatherRows(torch.autograd.Function):
+    """``out = src_pad[idx]``, rows of ``src`` (N, D) with a zero row N
+    appended, whose backward sums by construction in a fixed order: row n
+    of the gradient is ``sum_j g_pad[back[n, j]]``, added in ascending j
+    from zero, where ``back`` (N, J) lists the output rows that read source
+    row n (the zero row of ``g_pad`` where fewer did).  No atomic add and
+    no accumulating ``index_put``: two backward passes give the same bits
+    on any device."""
+
+    @staticmethod
+    def forward(ctx, src, idx, back):
+        ctx.save_for_backward(back)
+        return F.pad(src, (0, 0, 0, 1))[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (back,) = ctx.saved_tensors
+        rows = F.pad(g, (0, 0, 0, 1))[back]                         # (N, J, D)
+        out = torch.zeros_like(rows[:, 0])
+        for j in range(rows.shape[1]):
+            out = out + rows[:, j]
+        return out, None, None
+
+
 def _dispatch(params: dict, xf: torch.Tensor, top_w: torch.Tensor, top_e: torch.Tensor,
               capacity_factor: float, numerics) -> torch.Tensor:
     """Sorted-capacity dispatch of T tokens xf (T, D) with their routes:
-    scatter into (E, C, D), the experts, the weighted combine -> (T, D)."""
+    scatter into (E, C, D), the experts, the weighted combine -> (T, D).
+
+    Token t's k-th route in ascending expert id takes buffer row e C + p
+    (p its slot: the tokens of an expert take its slots in token order, as
+    the JAX package's stable sort by expert gives them), or none where p
+    >= C (dropped).  The scatter and the combine are both row gathers
+    (``_GatherRows``), each the other's inverse map: the scatter's backward
+    adds a token's K rows in ascending expert id, the order the forward's
+    combine adds them in."""
     T, D = xf.shape
     K = top_e.shape[-1]
     E = params["router"].shape[-1]
     C = capacity(T * K, E, capacity_factor)
     dev = xf.device
+    top_e, asc = torch.sort(top_e, dim=-1, stable=True)             # ascending expert id
+    top_w = torch.gather(top_w, 1, asc)
     fid = top_e.reshape(-1)
-    fw = top_w.reshape(-1)
-    tok = torch.arange(T * K, device=dev) // K
-    order = torch.argsort(fid, stable=True)
-    fid_s, fw_s, tok_s = fid[order], fw[order], tok[order]
+    order = torch.argsort(fid, stable=True)                         # by expert, then token
     counts = torch.bincount(fid, minlength=E)
-    starts = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(T * K, device=dev) - starts[fid_s]          # slot in expert
-    keep = pos < C
-    slot = torch.where(keep, pos, C)                                # C: dropped
-    xbuf = xf.new_zeros((E, C + 1, D)).index_put((fid_s, slot), xf[tok_s])[:, :C]
-    ybuf = _experts(params, xbuf, numerics)
-    ypad = F.pad(ybuf, (0, 0, 0, 1))                                # slot C reads 0
-    gathered = ypad[fid_s, slot] * (fw_s * keep).to(xf.dtype)[:, None]
-    # token t's K contributions, in ascending expert id: sorted position of
-    # flat assignment j = t K + k is inv[j]
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(T * K, device=dev)
-    contrib = gathered[inv].reshape(T, K, D)
-    asc = torch.argsort(top_e, dim=-1)
-    contrib = torch.gather(contrib, 1, asc[..., None].expand(T, K, D))
+    pos = torch.empty_like(fid)
+    pos[order] = torch.arange(T * K, device=dev) - (torch.cumsum(counts, 0) - counts)[fid[order]]
+    keep = (pos < C).reshape(T, K)
+    row = torch.where(keep.reshape(-1), fid * C + pos, E * C)        # (T K,): E C = none
+    # buffer row -> the token it holds (T: empty), and the flat route it came from
+    holder = torch.full((E * C + 1,), T * K, dtype=torch.long, device=dev)
+    holder[row] = torch.arange(T * K, device=dev)
+    holder = holder[:E * C]
+    token = torch.where(holder < T * K, holder // K, T)
+    xbuf = _GatherRows.apply(xf, token, row.reshape(T, K)).reshape(E, C, D)
+    ybuf = _experts(params, xbuf, numerics).reshape(E * C, D)
+    y = _GatherRows.apply(ybuf, row, holder[:, None]).reshape(T, K, D)
+    y = y * (top_w * keep).to(xf.dtype)[..., None]
     out = xf.new_zeros((T, D))
     for k in range(K):
-        out = out + contrib[:, k]
+        out = out + y[:, k]
     return out
 
 

@@ -26,6 +26,7 @@ from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan
 from repro_torch.kernels.ssd_scan.ops import decay_weighted_c
 from repro_torch.numerics import approx_matmul, resolve_numerics
+from repro_torch.numerics.approx_matmul import per_request
 
 from .layers import dense, rms_norm
 
@@ -215,7 +216,7 @@ def _conv_step(ring, new, w, bias):
 
 def _per_row_on_cpu(fn, *ts):
     """``fn`` over the batch rows of ``ts``: at once on CUDA, one row at a
-    time on the CPU.
+    time on the CPU (``per_request``).
 
     ATen's CPU loops run the vectorised form of a transcendental function
     (exp, log1p, sigmoid) on whole pairs of SIMD vectors and the scalar form
@@ -223,17 +224,13 @@ def _per_row_on_cpu(fn, *ts):
     sits in the batch; a CUDA kernel computes every element alike.  Row by
     row, a request computes the same bits batched or alone.
     """
-    if ts[0].device.type != "cpu":
-        return fn(*ts)
-    outs = [fn(*(t[i:i + 1].clone() for t in ts)) for i in range(ts[0].shape[0])]
-    return tuple(torch.cat(parts) for parts in zip(*outs))
+    return fn(*ts) if ts[0].device.type != "cpu" else per_request(fn, *ts)
 
 
 def _readout_exact(ch: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """sum_n ch[b, h, n] h[b, h, n, p], one (H, 1, N) @ (H, N, P) product per
-    request, so a request's result does not depend on the batch."""
-    return torch.stack([torch.matmul(ch[i, :, None, :].clone(), h[i].clone())[:, 0]
-                        for i in range(ch.shape[0])])
+    request (``per_request``)."""
+    return per_request(lambda c, s: torch.matmul(c[0, :, None, :], s[0])[None, :, 0], ch, h)
 
 
 def ssm_decode(params: dict, xin: torch.Tensor, state: SSMState, d_model: int,

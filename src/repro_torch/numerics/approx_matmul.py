@@ -83,26 +83,38 @@ class AMRNumerics:
         return registry.get_mode(self.mode).exact
 
 
-def _per_request(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(..., M, K) @ (K, N) as one (M, K) @ (K, N) ``torch.matmul`` per
-    slice of A's leading dims (a request's tokens).
+def per_request(fn, *ts: torch.Tensor):
+    """``fn`` over each request of ``ts`` (their leading index), on fresh
+    copies, its results joined along that index: the port's one rule for a
+    float product of a batch of requests (the exact dense sites, the exact
+    attention products, the SSM's exact readout).
 
-    Each slice is copied to a fresh tensor, so BLAS sees the same call
-    (shape and alignment) whatever batch the request came in; a product over
-    the whole batch may sum a row in another order when the batch is larger.
-    A prefill (one request) stays one call; a decode step is one call per
-    request.
+    BLAS picks a call's algorithm by its shape and alignment, so a product
+    over the whole batch may sum a request's row in another order than the
+    request alone; one call a request, on a fresh copy, is the call a solo
+    request makes.  ``fn`` keeps the leading dim of 1; it may return a
+    tuple, joined part by part.  The norms need no split: their reduction
+    is a kernel whose order a row's length alone fixes
+    (``kernels.rms_norm``).
     """
-    a3 = a.reshape(-1, *a.shape[-2:])
-    outs = [torch.matmul(a3[i].clone(), b) for i in range(a3.shape[0])]
-    out = torch.stack(outs) if outs else a3.new_empty((0, a.shape[-2], b.shape[-1]))
-    return out.reshape(*a.shape[:-1], b.shape[-1])
+    outs = [fn(*(t[i:i + 1].clone() for t in ts)) for i in range(ts[0].shape[0])]
+    if not outs:
+        return fn(*ts)
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
 
 
 def matmul_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``torch.matmul`` in the operands' dtype; one call per request on a
-    2-D B when A has a leading (request) dim."""
-    return _per_request(a, b) if b.dim() == 2 and a.dim() > 2 else torch.matmul(a, b)
+    """``torch.matmul`` in the operands' dtype; on a 2-D B with A's leading
+    dims (a request's tokens) one (M, K) @ (K, N) call per slice of them
+    (``per_request``): a prefill (one request) stays one call, a decode
+    step is one call per request."""
+    if b.dim() != 2 or a.dim() <= 2:
+        return torch.matmul(a, b)
+    a3 = a.reshape(-1, *a.shape[-2:])
+    out = per_request(lambda r: torch.matmul(r[0], b)[None], a3)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
 
 
 def matmul_amr_lut(a: torch.Tensor, b: torch.Tensor, border: int) -> torch.Tensor:

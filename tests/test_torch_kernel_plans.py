@@ -258,9 +258,10 @@ def test_replay_launch_takes_one_item_where_more_do_not_fit():
 def _all_kernels():
     from repro_torch.kernels.amr_matmul import kernel as amr
     from repro_torch.kernels.attn_fused import kernel as attn
+    from repro_torch.kernels.rms_norm import kernel as norm
     from repro_torch.kernels.ssd_scan import kernel as ssd
 
-    return amr.KERNELS + rkernel.KERNELS + ssd.KERNELS + attn.KERNELS
+    return amr.KERNELS + rkernel.KERNELS + ssd.KERNELS + attn.KERNELS + norm.KERNELS
 
 
 @pytest.mark.parametrize("kern", _all_kernels(), ids=lambda k: k.name)

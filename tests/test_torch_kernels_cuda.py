@@ -40,6 +40,7 @@ from repro_torch.kernels.attn_fused import ref as aref
 from repro_torch.kernels.build import CudaKernel, CudaLibrary, build_all
 from repro_torch.kernels.inject_replay import kernel as rkernel
 from repro_torch.kernels.inject_replay import ref as rref
+from repro_torch.kernels.rms_norm import kernel as nkernel
 from repro_torch.kernels.ssd_scan import kernel as skernel
 from repro_torch.kernels.ssd_scan import ref as sref
 from repro_torch.models import init_params
@@ -68,7 +69,8 @@ def _int8(shape, seed, device):
 
 def test_kernels_build(cuda, capsys):
     records = build_all(list(kernel.LIBRARIES) + list(rkernel.LIBRARIES)
-                        + list(skernel.LIBRARIES) + list(akernel.LIBRARIES))
+                        + list(skernel.LIBRARIES) + list(akernel.LIBRARIES)
+                        + list(nkernel.LIBRARIES))
     with capsys.disabled():
         for name, rec in records.items():
             print(f"\n[build] {name}: {rec.seconds:.1f}s\n{rec.log}")

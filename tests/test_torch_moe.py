@@ -38,8 +38,8 @@ interpret compile runs.
   (dbrx-132b) and exact (moonshot) in the local form.
 * Served batched equal to solo bit for bit, both forms, exact and rank 0.
 * The ``moe`` leaves through ``params_from_numpy`` (the router float32),
-  ``validate_config`` raising on the configs JAX's raises on, and the
-  launchers on the MoE archs.
+  ``validate_config`` raising on the configs JAX's raises on (broken
+  audio and VLM configs too), and the launchers on the MoE archs.
 
 No amr_inject run here (held on the card by ``chip_smoke.py``).
 """
@@ -57,7 +57,9 @@ from repro.configs.base import LayerPattern as JPattern
 from repro.configs.base import MoEConfig as JMoE
 from repro.configs.base import SSMConfig as JSSM
 from repro.configs.dbrx_132b import reduced as jdbrx
+from repro.configs.internvl2_76b import reduced as jvlm
 from repro.configs.moonshot_16b_a3b import reduced as jmoon
+from repro.configs.whisper_small import reduced as jwhisper
 from repro.models import decode_step as jdecode
 from repro.models import forward as jforward
 from repro.models import init_params as jinit
@@ -69,7 +71,9 @@ from repro_torch.configs.base import LayerPattern as TPattern
 from repro_torch.configs.base import MoEConfig as TMoE
 from repro_torch.configs.base import SSMConfig as TSSM
 from repro_torch.configs.dbrx_132b import reduced as tdbrx
+from repro_torch.configs.internvl2_76b import reduced as tvlm
 from repro_torch.configs.moonshot_16b_a3b import reduced as tmoon
+from repro_torch.configs.whisper_small import reduced as twhisper
 from repro_torch.configs.registry import ARCH_NAMES, get_reduced_config
 from repro_torch.launch import serve as serve_launch
 from repro_torch.launch import train as train_launch
@@ -328,12 +332,23 @@ def _bad_configs(pkg):
     ]
 
 
+def _bad_frontends(audio, vlm):
+    """Broken audio and VLM configs, from either package's reduced ones."""
+    r = dataclasses.replace
+    return [
+        r(audio, encoder_layers=0),
+        r(audio, encoder_frames=0),
+        r(audio, n_kv_heads=3),
+        r(vlm, vision_prefix=0),
+    ]
+
+
 def test_validate_config_raises_where_jax_does():
     for name in ARCH_NAMES:
         for cfg in (get_config(name), get_reduced_config(name)):
             assert validate_config(cfg) is cfg
-    jbad = _bad_configs((jdbrx(), JMoE, JSSM, JPattern))
-    tbad = _bad_configs((tdbrx(), TMoE, TSSM, TPattern))
+    jbad = _bad_configs((jdbrx(), JMoE, JSSM, JPattern)) + _bad_frontends(jwhisper(), jvlm())
+    tbad = _bad_configs((tdbrx(), TMoE, TSSM, TPattern)) + _bad_frontends(twhisper(), tvlm())
     for j, t in zip(jbad, tbad):
         with pytest.raises(ValueError) as je:
             jvalidation.validate_config(j)

@@ -264,12 +264,13 @@ def test_synthetic_and_memmap_batches_equal_jax(tmp_path):
 def test_ssm_config_refuses_to_train():
     """The SSD scan has a backward now, so an SSM config trains (one step on
     the CPU, 20 tokens: a ragged last chunk); only a layer kind the port
-    does not run is still refused, by every training entry point."""
+    does not run ("none": every kind of the JAX package's layers runs now)
+    is still refused, by every training entry point."""
     cfg = dataclasses.replace(mamba2_370m.reduced(), dtype="float32")
     b = _batch(TSynthetic(vocab=cfg.vocab, seq_len=20, batch=2, seed=0), 0)
     state, m = make_train_step(cfg)(make_train_state(cfg, 0, device="cpu"), b)
     assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
-    unported = dataclasses.replace(cfg, default_mixer="cross")
+    unported = dataclasses.replace(cfg, default_mixer="none")
     with pytest.raises(NotImplementedError, match="not ported"):
         make_train_step(unported)
     with pytest.raises(NotImplementedError, match="not ported"):

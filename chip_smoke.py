@@ -178,14 +178,15 @@ Phases (any failure raises, and the run exits non-zero):
    28.05 G random bf16 parameters from seed 0, drawn a layer at a time,
    after every earlier model is freed) through ``ServeEngine``, 2 slots,
    16-token prompts: as registered (``dispatch_shard="local"``: exact
-   expert products) at rank 0 and rank 8 (4 x 8), the attention sites on
+   expert products) at rank 0 and rank 8 (2 x 8), the attention sites on
    the gathers or the low-rank kernel and the experts on no hand kernel;
    in the replicate form (the ``MoEConfig`` default: every expert site one
-   grouped AMR product) at rank 0 (4 x 8: the grouped gather at each
+   grouped AMR product) at rank 0 (2 x 8: the grouped gather at each
    expert site, three a layer per dispatch, one dispatch a prefill and one
    a slot and step; the counts checked exactly, ``_moe_launches``) and
-   under amr_inject (2 requests of 4 tokens, 2 new: the replay kernel
-   only); batched vs solo bit for bit in each; rank 0 of each form
+   under amr_inject (2 requests of 4 tokens, 2 new, on MOON_INJECT_LAYERS
+   of the 48 layers: the replay kernel only); batched vs solo bit for bit
+   in each; rank 0 of each form
    profiled; prefill and decode seconds, ms per decode step, peak memory;
 8d. whisper-small — full width (12 encoder and 12 decoder layers, d_model
    768, 12 heads of 64, d_ff 3072 gelu, vocab 51865, tied; random bf16
@@ -194,20 +195,33 @@ Phases (any failure raises, and the run exits non-zero):
    frames, ``prefill_with_cache`` with them, greedy ``decode_step``s with
    the encoder output; every decoder layer projects the cross K and V of
    the frames anew each step): 2 requests of 1500 random frames and 16-token
-   prompts, 14 new tokens, under exact, rank 0 and rank 8; the launches of
+   prompts, WHISPER_GEN new tokens, under exact, rank 0 and rank 8; the launches of
    each kernel in the prefill and in each decode step checked exactly;
    batched == solo bit for bit; rank 0 profiled; then in float32 (where
    both quantizers agree) 2 requests of 4 tokens, 2 new, under amr_inject
    (the replay kernel only), whose tokens and logits equal rank 0's bit
    for bit (``phase_whisper``);
 8e. internvl2-76b — full width (d_model 8192, 64 heads, 8 KV heads of 128,
-   d_ff 28672, vocab 128256, untied) with its depth cut to 24 of 80 layers
-   (41.1 GB of layers and 4.2 GB of embedding and head; its 141 GB do not
-   fit the card), random bf16 weights: 2 requests of 256 random patch
+   d_ff 28672, vocab 128256, untied) with its depth cut to VLM_LAYERS of 80
+   layers (16: 27.4 GB of layers and 4.2 GB of embedding and head; its 141
+   GB do not fit the card), random bf16 weights: 2 requests of 256 random patch
    embeddings (the exact ``vision.proj``, prepended) and 16-token prompts,
    8 new tokens, the KV capacity widened by the prefix, under exact and
    rank 0, launches checked, batched == solo bit for bit, rank 0 profiled
    (``phase_vlm``);
+8f. the rest of the dense family (``phase_dense_rest``), after every
+   earlier model is freed: minitron-8b at full width and depth (32 layers,
+   d_model 4096, GQA 32 heads over 8 KV heads of 128, d_ff 16384, vocab
+   256000, untied; 9.88 G random bf16 parameters from seed 0) and
+   qwen3-32b at full width and QWEN_LAYERS of its 64 layers (d_model 5120,
+   64 heads and 8 KV heads of 128, qk-norm, rope theta 1e6, d_ff 25600,
+   vocab 151936, untied; 32.8 G parameters, 61.1 GiB), each through
+   ``ServeEngine`` at rank 0, 2 requests of 16 tokens, 8 new, 2 slots: the
+   launches per prefill and per decode step checked exactly (7 flat and 2
+   grouped gathers a layer; 2 norms a layer, 4 with qk-norm, and the final
+   one), batched == solo bit for bit, minitron-8b profiled, qwen3-32b's
+   peak memory under DENSE_PEAK_GIB; then reduced minitron-8b and qwen3-32b
+   (rank 0, and qwen3-32b at rank 8) card vs CPU as in phase 3;
 9. train — (a) reduced amr-paper-100m in float32 trained on the card
    (kernels) and on the CPU (plain versions) from the same weights on the
    same ``SyntheticLM`` batches under its four training policies
@@ -230,17 +244,20 @@ Phases (any failure raises, and the run exits non-zero):
    low-rank kernel, amr_inject the replay kernel, amr_lowrank none; each a
    step one forward's count, twice under "block"), finite losses and
    gradient norms, ms per step, tokens/s, peak memory and the idle share of
-   one profiled step; (c) ``FaultTolerantLoop`` on full-width amr-paper-100m
-   under amr_inject and under amr_noise (its draws follow the restored
+   one profiled step; (c) ``FaultTolerantLoop`` on amr-paper-100m at full
+   width and AMR_RESTART_LAYERS of its 12 layers under amr_inject and
+   under amr_noise (its draws follow the restored
    step), 4 steps straight and 2 + a raised failure + a restore + 2: the
    float32 losses and every leaf of the final state bit for bit;
    and for the SSM and hybrid families: (a) reduced mamba2-370m and
    zamba2-1.2b in float32, card vs CPU, under exact and rank 0 (loss 1e-4
    relative, each gradient leaf within 1e-3 of its max, the unread leaves
-   zero); (b) full-width mamba2-370m at rank 0 and rank 8 (4 x 2048) and
-   zamba2-1.2b at rank 8 (2 x 1024), remat "block": the SSD kernel twice
-   per Mamba2 layer a step, its backward once; (c) the restart on
-   full-width mamba2-370m at rank 0 (2 x 2048);
+   zero); (b) full-width mamba2-370m at rank 0 and rank 8 (4 x 2048; rank
+   8 on MAMBA_R8_TRAIN_LAYERS of its 48 layers) and zamba2-1.2b at rank 8
+   (2 x 1024, ZAMBA_R8_TRAIN_GROUPS of its 2 groups), remat "block": the
+   SSD kernel twice per Mamba2 layer a step, its backward once; (c) the
+   restart on mamba2-370m at full width and MAMBA_RESTART_LAYERS of its
+   48 layers, rank 0 (2 x 2048);
    and for MoE training and the audio family: (b) full-width whisper-small
    at rank 0 and rank 8 on 2 x 1500 frames and 2 x 448 tokens (the
    encoder's launches once a step: no encoder layer is recomputed), and
@@ -248,12 +265,29 @@ Phases (any failure raises, and the run exits non-zero):
    (2 x 512 tokens, 6144 routes over 64 experts of capacity 120: drops) as
    registered (local) at rank 8 and in the replicate form at rank 0, where
    two backward passes on the first batch must give the same bits; (c) the
-   restart on moonshot-v1-16b-a3b, 2 layers at full width, replicate form
-   at rank 0 (2 x 512);
+   restart on moonshot-v1-16b-a3b, MOON_RESTART_LAYERS layer at full
+   width, replicate form at rank 0 (2 x 512);
    (d) with phase 2, the gathers, the low-rank and the replay kernel at
    amr-paper-100m's training shapes (M = 2048; (768, 768), (768, 3072),
    (3072, 768); attn.qk / attn.pv over 96 groups of 256 x 64 x 256), border
    8, against their plain versions (``training_kernel_rows``).
+10. conformance — the port's conformance matrix on the card
+   (``phase_conformance``, ``repro_torch.conformance``): the train and
+   decode-parity arms of each representative arch and of reduced
+   minitron-8b and qwen3-32b under every registered mode (48 rows each),
+   the inject audit of every arch of ``families()`` and of the dense
+   representative on a registered DSE candidate (``DSE_CANDIDATE``), the
+   noise arm of each representative and the restart arm (gemma-2b,
+   amr_inject) under both preemption protocols: train rows finite and
+   non-degenerate, audits bit-exact with the family's activation sites
+   among them, noise reproducible and decorrelated, restarts bit for bit
+   with the debris cleaned, parity within ``PARITY_TOL`` or held by
+   ``parity_cause`` (the decode on the forward's own cache equal to the
+   forward, the first differing cache layer named); one summary line, a
+   line per failed row, and the phase raises if any failed.
+
+``--only dense,conformance`` runs the build and those phases alone (no
+kernels line): a quick check of this slice's paths.
 
 Bounds: the larger of the bytes over 3.35 TB/s and the operations over the
 peak rate of their type: float32 67 T/s (the H100 SXM data sheet, an FMA
@@ -318,11 +352,11 @@ GATHERS = {"amr_matmul_int8_lut", "amr_matmul_int8_lut_grouped"}
 NORM_KERNEL = "row_mean_square"
 MOE_EXPERT_M = (6, 12, 96)  # C at top-6: a decode token, 2 tokens, a 16-token prompt
 MOON_INJECT_PROMPT, MOON_INJECT_GEN = 4, 2  # moonshot's amr_inject run: 2 requests of these
-MOON_INJECT_LAYERS = 12                     # ... on 12 of its 48 layers
+MOON_INJECT_LAYERS = 6                      # ... on 6 of its 48 layers
 NOISE_SIGMAS = 5.0  # the amr_noise moment gate: mean 0 and std 1 within 5 standard errors
-WHISPER_PROMPT, WHISPER_GEN = 16, 14           # phase 8d: 2 requests of 1500 frames each
+WHISPER_PROMPT, WHISPER_GEN = 16, 8            # phase 8d: 2 requests of 1500 frames each
 WHISPER_INJECT_PROMPT, WHISPER_INJECT_GEN = 4, 2
-VLM_LAYERS, VLM_PROMPT, VLM_GEN = 24, 16, 8    # phase 8e: internvl2-76b, 24 of its 80 layers
+VLM_LAYERS, VLM_PROMPT, VLM_GEN = 16, 16, 8    # phase 8e: internvl2-76b, 16 of its 80 layers
 WHISPER_TRAIN_SEQ = 448                        # phase 9b: whisper's target length
 # phase 2: kernels 1-4 at this slice's shapes, (kind, model, site, (G or 0, M, K, N))
 FRONTEND_SHAPES = [
@@ -340,7 +374,44 @@ FRONTEND_SHAPES = [
     ("replay", "whisper-small", "encoder attn.qk", (24, 1500, 64, 1500)),
 ]
 MOON_TRAIN_LAYERS, MOON_TRAIN_SEQ = 4, 512     # phase 9b: moonshot, 4 of its 48 layers
-MOON_RESTART_LAYERS = 2                        # phase 9c
+# phase_conformance: a DSE candidate's recorded decisions, (stage, column, posibits,
+# negabits, cells): the whole-multiplier assignment the JAX package's
+# search_assignments(2, 8, k=1, beam_width=8, branch_cap=4, max_nodes=2000)
+# returns (tests/test_torch_conformance.py holds it to that), expected error 1
+DSE_CANDIDATE = (
+    (0, 2, 3, 0, (("FA_PP", 3, 0),)),
+    (0, 3, 4, 0, (("FA_PP", 3, 0),)),
+    (0, 4, 5, 2, (("FA_PN1", 2, 1), ("FA_PN2", 2, 1))),
+    (0, 5, 6, 2, (("FA_NP1", 1, 2), ("FA_PP", 3, 0))),
+    (0, 6, 7, 2, (("FA_PN1", 2, 1), ("FA_PN2", 2, 1), ("FA_PP", 3, 0))),
+    (0, 7, 8, 2, (("FA_PN1", 2, 1), ("FA_PN2", 2, 1), ("FA_PP", 3, 0))),
+    (0, 8, 8, 4, (("FA", 0, 3), ("FA", 2, 1), ("FA", 3, 0), ("FA", 3, 0))),
+    (1, 3, 3, 0, (("FA_PP", 3, 0),)),
+    (1, 4, 2, 2, (("FA_NP1", 1, 2),)),
+    (1, 5, 5, 0, (("FA_PP", 3, 0),)),
+    (1, 6, 3, 3, (("FA_NN", 0, 3), ("FA_PP", 3, 0))),
+    (1, 7, 5, 2, (("FA_NP1", 1, 2), ("FA_PP", 3, 0))),
+    (1, 8, 5, 2, (("FA", 1, 2), ("FA", 3, 0))),
+    (2, 4, 3, 0, (("FA_PP", 3, 0),)),
+    (2, 5, 2, 1, (("FA_PN1", 2, 1),)),
+    (2, 6, 3, 1, (("FA_PN2", 2, 1),)),
+    (2, 7, 4, 1, (("FA_PN1", 2, 1),)),
+    (2, 8, 4, 1, (("FA", 2, 1),)),
+    (3, 6, 2, 1, (("FA_PN1", 2, 1),)),
+    (3, 7, 2, 1, (("FA_PN1", 2, 1),)),
+    (3, 8, 3, 1, (("FA_PN2", 2, 1),)),
+    (4, 8, 2, 1, (("FA_PN1", 2, 1),)),
+)
+MOON_RESTART_LAYERS = 1                        # phase 9c
+# depth cuts that keep the script within its time (PERF.md §4)
+MOON_SERVE_REQUESTS = SLOTS                    # phase 8c: moonshot's served runs, 7 decode steps
+MAMBA_R8_TRAIN_LAYERS = 16                     # phase 9b: mamba2-370m rank 8, 16 of 48 layers
+ZAMBA_R8_TRAIN_GROUPS = 1                      # phase 9b: zamba2-1.2b rank 8, 1 of 2 groups
+AMR_RESTART_LAYERS = 4                         # phase 9c: amr-paper-100m, 4 of 12 layers
+MAMBA_RESTART_LAYERS = 16                      # phase 9c: mamba2-370m, 16 of 48 layers
+DENSE_REQUESTS, DENSE_GEN = 2, 8              # phase 8f: minitron-8b and qwen3-32b
+QWEN_LAYERS = 64                               # ... qwen3-32b at full depth
+DENSE_PEAK_GIB = 76.0                          # ... the peak each must stay under
 
 
 def log(msg: str) -> None:
@@ -1461,12 +1532,7 @@ def phase_reference(device) -> None:
     from repro_torch.configs import (dbrx_132b, gemma3_1b, mamba2_370m, moonshot_16b_a3b,
                                      zamba2_1p2b)
     from repro_torch.configs.gemma_2b import reduced
-    from repro_torch.kernels.ssd_scan import kernel as skernel
-    from repro_torch.models import init_params
-    from repro_torch.models.tree import tree_map
     from repro_torch.numerics import AMRNumerics
-    from repro_torch.numerics.quant import record_quantizations
-    from repro_torch.serve import Request, ServeEngine
 
     cases = [(reduced(), AMRNumerics("amr_kernel", border=BORDER, rank=0)),
              (reduced(), AMRNumerics("amr_kernel", border=BORDER, rank=RANK)),
@@ -1485,7 +1551,29 @@ def phase_reference(device) -> None:
                                                                         dispatch_shard=form))
             cases += [(base, AMRNumerics("exact")),
                       (base, AMRNumerics("amr_kernel", border=BORDER, rank=0))]
-    prompts = [(5, 9, 2, 7), (3, 11, 4, 1, 8, 6), (13, 2), (9, 7, 9, 1, 2)]
+    for cfg, params, card in reference_served(device, cases):
+        if cfg.moe is not None and cfg.moe.dispatch_shard == "replicate" and \
+                cfg.name == "dbrx-132b" and not cfg.numerics.is_exact():
+            inject_equals_rank0(device, cfg, params, REFERENCE_PROMPTS, card)
+
+
+REFERENCE_PROMPTS = [(5, 9, 2, 7), (3, 11, 4, 1, 8, 6), (13, 2), (9, 7, 9, 1, 2)]
+
+
+def reference_served(device, cases: list):
+    """Each (reduced config, numerics) of ``cases`` in float32, served on
+    the CPU and on the card from the same weights: tokens equal, logits
+    within 1e-3 of the largest or, where not, phase 9a's trace rule (the
+    log names the tie); the SSD kernel launched exactly where the config
+    has an SSM.  Yields each case's config, CPU weights and card
+    completions."""
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+    from repro_torch.models import init_params
+    from repro_torch.models.tree import tree_map
+    from repro_torch.numerics.quant import record_quantizations
+    from repro_torch.serve import Request, ServeEngine
+
+    prompts = REFERENCE_PROMPTS
     for base, nm in cases:
         cfg = dataclasses.replace(base, dtype="float32", numerics=nm)
         params = init_params(cfg, 0, device="cpu")
@@ -1520,9 +1608,7 @@ def phase_reference(device) -> None:
         log(f"[reference] reduced {cfg.name}{form} f32 {nm}: tokens equal, "
             f"max |logit diff| card vs CPU {diff:.3g} (max |logit| {top:.3g}); SSD kernel "
             f"launches {skernel.SSD.launches}")
-        if cfg.moe is not None and cfg.moe.dispatch_shard == "replicate" and \
-                cfg.name == "dbrx-132b" and not nm.is_exact():
-            inject_equals_rank0(device, cfg, params, prompts, card)
+        yield cfg, params, card
 
 
 def phase_reference_frontends(device) -> None:
@@ -1983,12 +2069,14 @@ def ring_state(config, eng, run: Run) -> str:
 
 
 def serve_model(device, card: str, config, params, runs: dict, solo: tuple, profiled: tuple,
-                per_prefill: dict) -> dict:
+                per_prefill: dict, stats: dict | None = None) -> dict:
     """Serve full-width ``config`` (weights ``params``) through ServeEngine
     under each ``Run`` of ``runs`` (by label); the labels in ``solo`` again
     with request 0 alone, and those in ``profiled`` once more under the
     profiler.  ``per_prefill`` names kernels that must launch exactly that
-    many times per prefill.  Returns each run's launch counts."""
+    many times per prefill.  Returns each run's launch counts; ``stats``,
+    where given, receives each run's prefill seconds, ms per decode step and
+    peak GiB by label."""
     import torch
 
     from repro_torch.serve import Request, ServeEngine
@@ -2036,6 +2124,10 @@ def serve_model(device, card: str, config, params, runs: dict, solo: tuple, prof
                 raise AssertionError(f"{config.name} {label}: launches {counts}, expected "
                                      f"{want} in {reqs} prefills and {eng.steps_done} steps")
         tokens = sum(len(c.tokens) for c in done)
+        if stats is not None:
+            stats[label] = {"prefill_s": eng.prefill_seconds,
+                            "ms_per_step": 1e3 * eng.decode_seconds / eng.steps_done,
+                            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         log(f"[serve] {config.name} {label} on {card}: {len(done)} requests, {tokens} tokens "
             f"in {wall:.3f}s ({tokens / wall:.2f} tok/s end to end); prefill "
             f"{eng.prefill_tokens} prompt tokens in {eng.prefill_seconds:.3f}s "
@@ -2214,14 +2306,14 @@ def phase_moonshot(device, card: str, cfg) -> dict:
     head; random bf16 weights from seed 0, 28.05 G parameters) through
     ``ServeEngine``, 2 slots, 16-token prompts.  The registered form
     (``dispatch_shard="local"``: exact expert products) at rank 0 and rank 8
-    (4 x 8): the attention sites launch the gathers or the low-rank kernel,
-    the experts nothing.  The replicate form (the ``MoEConfig`` default,
-    the experts through the numerics) at rank 0 (4 x 8: the grouped gather
-    at every expert site) and under amr_inject (2 requests of
-    MOON_INJECT_PROMPT tokens, MOON_INJECT_GEN new: the replay kernel
-    only), the latter on the first MOON_INJECT_LAYERS of the 48 layers (the
-    same weights: its 20 s a run at full depth went to this PR's new
-    phases).  Each run again with request 0 alone (the same bits); rank 0
+    (MOON_SERVE_REQUESTS x 8): the attention sites launch the gathers or the
+    low-rank kernel, the experts nothing.  The replicate form (the
+    ``MoEConfig`` default, the experts through the numerics) at rank 0
+    (MOON_SERVE_REQUESTS x 8: the grouped gather at every expert site) and
+    under amr_inject (2 requests of MOON_INJECT_PROMPT tokens,
+    MOON_INJECT_GEN new: the replay kernel only), the latter on the first
+    MOON_INJECT_LAYERS of the 48 layers (the same weights; the script's
+    time went to later phases).  Each run again with request 0 alone (the same bits); rank 0
     of each form under the profiler.  Returns each run's launch counts."""
     import torch
 
@@ -2237,14 +2329,15 @@ def phase_moonshot(device, card: str, cfg) -> dict:
         f"the card")
     launches = {}
     registered = {
-        "local rank 0": Run(rank0, REQUESTS, GEN, GATHERS, expect=_moe_launches(cfg, SLOTS)),
-        f"local rank {RANK}": Run(AMRNumerics("amr_kernel", border=BORDER, rank=RANK), REQUESTS,
-                                  GEN, {"amr_matmul_int8"}),
+        "local rank 0": Run(rank0, MOON_SERVE_REQUESTS, GEN, GATHERS,
+                            expect=_moe_launches(cfg, SLOTS)),
+        f"local rank {RANK}": Run(AMRNumerics("amr_kernel", border=BORDER, rank=RANK),
+                                  MOON_SERVE_REQUESTS, GEN, {"amr_matmul_int8"}),
     }
     launches.update(serve_model(device, card, cfg, params, registered, tuple(registered),
                                 ("local rank 0",), {}))
     replicated = {
-        "replicate rank 0": Run(rank0, REQUESTS, GEN, GATHERS,
+        "replicate rank 0": Run(rank0, MOON_SERVE_REQUESTS, GEN, GATHERS,
                                 expect=_moe_launches(replicate, SLOTS)),
     }
     t0 = time.perf_counter()
@@ -2491,8 +2584,9 @@ def phase_vlm(device, card: str, cfg) -> dict:
     """Phase 8e: internvl2-76b at full width (d_model 8192, 64 heads of 128,
     8 KV heads, d_ff 28672 swiglu, vocab 128256, untied, a 256-patch
     prefix) with its depth cut to VLM_LAYERS of 80 layers (its 141 GB of
-    bf16 weights do not fit the card; 24 layers are 41.1 GB, with 4.2 GB of
-    embedding and head), random bf16 weights from seed 0, through its
+    bf16 weights do not fit the card; 16 layers are 27.4 GB, with 4.2 GB of
+    embedding and head; 24 until the script's time went to later phases),
+    random bf16 weights from seed 0, through its
     model-level entry points: 2 requests of 256 random patch embeddings and
     VLM_PROMPT-token prompts, VLM_GEN new tokens, the KV capacity widened by
     the prefix; under exact and rank 0, each batched == solo bit for bit,
@@ -2519,6 +2613,221 @@ def phase_vlm(device, card: str, cfg) -> dict:
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+def _dense_launches(cfg):
+    """The launches a served dense run of ``cfg`` at rank 0 must make, per
+    prefill and per decode step: 7 flat gathers a layer (wq, wk, wv, wo,
+    w_gate, w_up, w_down), 2 grouped (attn.qk, attn.pv), and 2 norms a layer
+    (ln1, ln2), 2 more with qk-norm (q_norm, k_norm: one launch each over
+    every head), and the final norm."""
+    L = cfg.n_layers
+    norms = (4 if cfg.qk_norm else 2) * L + 1
+
+    def expect(prefills: int, steps: int) -> dict:
+        n = prefills + steps
+        return {"amr_matmul_int8_lut": 7 * L * n, "amr_matmul_int8_lut_grouped": 2 * L * n,
+                NORM_KERNEL: norms * n}
+    return expect
+
+
+def phase_dense_rest(device, card: str) -> dict:
+    """Phase 8f: the rest of the dense family at full width, random bf16
+    weights from seed 0, each after every earlier model is freed: minitron-8b
+    (32 layers, d_model 4096, 32 heads and 8 KV heads of 128, d_ff 16384,
+    vocab 256000, untied; 9.87 G parameters) and qwen3-32b (64 layers,
+    d_model 5120, 64 heads and 8 KV heads of 128 (a query width of 8192),
+    qk-norm, rope theta 1e6, d_ff 25600, vocab 151936, untied; 32.8 G
+    parameters, 61.0 GiB) at QWEN_LAYERS of its 64 layers.  Each through
+    ``ServeEngine`` at rank 0, DENSE_REQUESTS requests of PROMPT_LEN tokens,
+    DENSE_GEN new, 2 slots: the launches checked exactly (``_dense_launches``),
+    batched == solo bit for bit (tokens and float32 logits), minitron-8b
+    profiled (idle share); prefill seconds, ms per decode step, peak memory
+    and launches per decode step printed; qwen3-32b's peak held under
+    DENSE_PEAK_GIB.  Then reduced minitron-8b and qwen3-32b card vs CPU
+    (``reference_served``: tokens equal, logits within 1e-3 or the trace
+    rule at a named tie) at rank 0, and qwen3-32b at rank 8.  Returns each
+    run's launch counts."""
+    import torch
+
+    from repro_torch.configs import minitron_8b, qwen3_32b
+    from repro_torch.numerics import AMRNumerics
+
+    rank0 = AMRNumerics("amr_kernel", border=BORDER, rank=0)
+    launches = {}
+    for cfg, layers, profiled in ((minitron_8b.CONFIG, minitron_8b.CONFIG.n_layers, ("rank 0",)),
+                                  (qwen3_32b.CONFIG, QWEN_LAYERS, ())):
+        cut = dataclasses.replace(cfg, n_layers=layers)
+        expect = _dense_launches(cut)
+        runs = {"rank 0": Run(rank0, DENSE_REQUESTS, DENSE_GEN, GATHERS, expect=expect)}
+        torch.cuda.empty_cache()
+        if layers < cfg.n_layers:
+            log(f"[serve] {cfg.name}: depth cut to {layers} of {cfg.n_layers} layers, full width")
+        params = model_params(device, cut)
+        log(f"[serve] {cfg.name}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB of weights "
+            f"on the card")
+        stats = {}
+        launches[cfg.name] = serve_model(device, card, cut, params, runs, tuple(runs), profiled,
+                                         {}, stats=stats)
+        st = stats["rank 0"]
+        log(f"[dense] {cfg.name} ({layers} of {cfg.n_layers} layers) rank 0 on {card}: prefill "
+            f"{st['prefill_s']:.3f}s, {st['ms_per_step']:.1f} ms a decode step, peak "
+            f"{st['peak_gib']:.2f} GiB; launches a decode step {expect(0, 1)}, a prefill "
+            f"{expect(1, 0)} (checked exactly)")
+        if st["peak_gib"] > DENSE_PEAK_GIB:
+            raise AssertionError(f"{cfg.name}: peak {st['peak_gib']:.2f} GiB over "
+                                 f"{DENSE_PEAK_GIB} GiB")
+        del params
+        torch.cuda.empty_cache()
+    for _ in reference_served(device, [
+            (minitron_8b.reduced(), rank0), (qwen3_32b.reduced(), rank0),
+            (qwen3_32b.reduced(), AMRNumerics("amr_kernel", border=BORDER, rank=RANK))]):
+        pass
+    return launches
+
+
+def parity_cause(arch: str, mode: str, device, seq: int = 12, batch: int = 2,
+                 seed: int = 0) -> dict:
+    """Why a conformance decode-parity row (``run_decode_parity``'s
+    arguments) is past ``PARITY_TOL``, and whether the arm holds without it.
+
+    The forward quantizes a column of V (``attn.pv``'s per-column operand)
+    over every position of its pass, the prefill of S - 1 tokens over those
+    S - 1: where position S - 1 changes a column's scale, the prefill's
+    outputs at earlier positions, and the cache built from them, differ from
+    the forward's (JAX's quantization is the same).  So the arm is held
+    where (1) the decode of token S - 1 on the forward's own cache (a
+    prefill of all S tokens, rewound one position) gives the forward's last
+    logits bit for bit, or, where a window ring quantizes V over the window
+    alone, within ``PARITY_TOL``; and (2) the first layer whose cache
+    differs between the two prefills at their shared positions is named:
+    the leaf, the position, the difference.  An SSM state cannot be
+    rewound: such a row is not held."""
+    import torch
+
+    from repro_torch import conformance as conf
+    from repro_torch.models import (decode_step, encode, forward, group_structure,
+                                    init_params, prefill_with_cache)
+    from repro_torch.models.attention import KVCache
+
+    cfg = conf.tiny_config(arch, mode)
+    kinds, n_repeat = group_structure(cfg)
+    params = init_params(cfg, seed, device=device)
+    inputs = conf.make_inputs(cfg, batch, seq, seed, device=device)
+    toks, extra = inputs["tokens"], inputs.get("extra")
+    cap = seq + cfg.vision_prefix
+    with torch.inference_mode():
+        enc_out = encode(cfg, params, extra) if cfg.encoder_layers else None
+        ref = forward(cfg, params, toks, extra)[0][:, -1].float()
+        _, short = prefill_with_cache(cfg, params, toks[:, :-1], capacity=cap,
+                                      extra_embeddings=extra)
+        _, full = prefill_with_cache(cfg, params, toks, capacity=cap, extra_embeddings=extra)
+        if not all(isinstance(c, KVCache) for c in full):
+            return {"held": False, "why": "an SSM state cannot be rewound"}
+        rewound = tuple(dataclasses.replace(c, length=c.length - 1) for c in full)
+        got = decode_step(cfg, params, toks[:, -1:], rewound, enc_out)[0][:, 0].float()
+    own = float((got - ref).abs().max())
+    ring = any(c.k.shape[2] < cap for c in full)
+    first = None
+    last = cfg.vision_prefix + seq - 1  # the positions both prefills hold: < last
+    for g in range(n_repeat):
+        for i, (a, b) in enumerate(zip(short, full)):
+            C = a.k.shape[2]
+            pos = list(range(max(0, last - C + 1) if C < cap else 0, last))
+            slots = torch.tensor([p % C for p in pos], device=a.k.device)
+            for leaf in ("k", "v"):
+                d = (getattr(a, leaf)[g][:, slots].float()
+                     - getattr(b, leaf)[g][:, slots].float()).abs()
+                if first is None and float(d.max()) > 0:
+                    where = int(d.amax(dim=(0, 2, 3)).argmax())
+                    first = {"layer": g * len(kinds) + i, "kind": kinds[i], "leaf": leaf,
+                             "position": pos[where], "max_abs_diff": float(d.max())}
+    held = (own <= conf.PARITY_TOL[mode] if ring else own == 0.0) and first is not None
+    return {"held": held, "decode_on_own_cache_diff": own, "window_ring": ring,
+            "first_differing_cache": first}
+
+
+def phase_conformance(device) -> dict:
+    """Phase 10: the port's conformance matrix (``repro_torch.conformance``)
+    on the card, its reduced models on the hand kernels: ``run_train_arm``
+    and ``run_decode_parity`` for each ``REPRESENTATIVE`` arch and for
+    reduced minitron-8b and qwen3-32b under every registered mode;
+    ``run_inject_audit`` for every arch of ``families()`` and once more on
+    the dense representative with a registered DSE candidate
+    (``DSE_CANDIDATE``, its oracle table by ``core/dse/export.
+    lut_from_schedule``); ``run_noise_decorrelation`` for every
+    representative; ``run_restart_arm`` (gemma-2b, amr_inject) under both
+    preemption protocols (the loop's event and a real SIGTERM).  Every train
+    row finite and non-degenerate, every audit bit-exact with the family's
+    ``ACTIVATION_SITES`` among its sites, every parity row within
+    ``PARITY_TOL``, noise reproducible and decorrelated, both restarts bit
+    for bit with the debris cleaned.  Prints one line of counts and one a
+    failed row, then raises if any failed.  Returns the launches of each
+    kernel over the phase."""
+    from repro_torch import conformance as conf
+    from repro_torch.configs import families
+    from repro_torch.core.dse import ColumnChoice, materialize_choices
+    from repro_torch.numerics import injection, mode_names
+
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    family = {a: f for f, archs in families().items() for a in archs}
+    rows, failed, held = [], [], []
+
+    def check(row: dict, ok: bool) -> None:
+        rows.append(row)
+        if not ok:
+            failed.append(row)
+            log(f"[conformance] FAILED {json.dumps(row)}")
+
+    t0 = time.perf_counter()
+    for arch in [*conf.REPRESENTATIVE.values(), "minitron-8b", "qwen3-32b"]:
+        for mode in mode_names():
+            row = conf.run_train_arm(arch, mode, device=device)
+            check(row, row["loss_finite"] and row["grad_finite"] and row["nondegenerate"])
+            row = conf.run_decode_parity(arch, mode, device=device)
+            if not row["within_tol"]:
+                row["cause"] = parity_cause(arch, mode, device)
+                held.append(row)
+                log(f"[conformance] parity past its tolerance: {json.dumps(row)}")
+            check(row, row["within_tol"] or row["cause"]["held"])
+    t1 = time.perf_counter()
+    dse = injection.register_schedule(
+        materialize_choices(2, BORDER, [ColumnChoice(*c) for c in DSE_CANDIDATE]),
+        name="chip_smoke:dse")
+    audits = [(a, None) for a in family] + [(conf.REPRESENTATIVE["dense"], dse)]
+    for arch, ref in audits:
+        row = conf.run_inject_audit(arch, schedule_ref=ref, device=device)
+        check(row, row["bit_exact"]
+              and conf.ACTIVATION_SITES[family[arch]] <= set(row["site_diffs"]))
+    for arch in conf.REPRESENTATIVE.values():
+        row = conf.run_noise_decorrelation(arch, device=device)
+        check(row, row["reproducible"] and row["steps_decorrelated"])
+    t2 = time.perf_counter()
+    for use_signal in (False, True):
+        row = conf.run_restart_arm("gemma-2b", use_signal=use_signal, device=device)
+        row["protocol"] = "sigterm" if use_signal else "event"
+        check(row, row["bit_exact"] and row["tmp_cleaned"])
+    t3 = time.perf_counter()
+    kinds: dict = {}
+    for row in rows:
+        kinds[row["kind"]] = kinds.get(row["kind"], 0) + 1
+    worst = max((r["parity_diff"] / r["tol"], r["arch"], r["mode"]) for r in rows
+                if r["kind"] == "decode_parity" and r["applicable"])
+    counts = {k.name: k.launches for k in kernels}
+    for name in sorted(GATHERS | {"inject_replay", "ssd_scan", "ssd_scan_bwd", NORM_KERNEL}):
+        if not counts[name]:
+            check({"kind": "launches", "kernel": name}, False)
+    log(f"[conformance] {len(rows)} rows ({json.dumps(kinds)}), {len(failed)} failed; "
+        f"train + parity {t1 - t0:.1f}s, audits + noise {t2 - t1:.1f}s, restarts "
+        f"{t3 - t2:.1f}s; widest parity {worst[0]:.3f} of its tolerance ({worst[1]}, "
+        f"{worst[2]}); {len(held)} parity rows past it held by ``parity_cause``; audits "
+        f"{sum(r['calls'] for r in rows if r['kind'] == 'inject_audit')} call sites; "
+        f"launches {counts}")
+    if failed:
+        raise AssertionError(f"[conformance] {len(failed)} of {len(rows)} rows failed")
+    return counts
 
 
 def chunked_prefill(device, card: str, cfg, params) -> None:
@@ -3030,6 +3339,10 @@ def phase_train_full(device, card: str) -> tuple[dict, dict]:
 
     rank8 = AMRNumerics("amr_kernel", border=BORDER, rank=RANK)
     ssd = {"ssd_scan", "ssd_scan_bwd"}
+    zamba2 = dataclasses.replace(zamba2_1p2b.CONFIG, pattern=dataclasses.replace(
+        zamba2_1p2b.CONFIG.pattern, n_repeat=ZAMBA_R8_TRAIN_GROUPS))
+    log(f"[train] depth cuts: mamba2-370m rank {RANK} on {MAMBA_R8_TRAIN_LAYERS} of 48 layers, "
+        f"zamba2-1.2b rank {RANK} on {zamba2.pattern.n_layers} of 38 (full width)")
     plan = [(f"amr-paper-100m {label}", dataclasses.replace(amr_paper.CONFIG, numerics=nm),
              label, uses, TRAIN_BATCH, TRAIN_SEQ)
             for label, (nm, uses, _) in train_policies(amr_paper.CONFIG).items()]
@@ -3039,9 +3352,11 @@ def phase_train_full(device, card: str) -> tuple[dict, dict]:
     plan += [("mamba2-370m rank 0", dataclasses.replace(
                  mamba2_370m.CONFIG, numerics=AMRNumerics("amr_kernel", border=BORDER, rank=0)),
               "rank 0", GATHERS | ssd, MAMBA_TRAIN_BATCH, SSD_CONTEXT),
-             (f"mamba2-370m rank {RANK}", dataclasses.replace(mamba2_370m.CONFIG, numerics=rank8),
+             (f"mamba2-370m rank {RANK}, {MAMBA_R8_TRAIN_LAYERS} layers", dataclasses.replace(
+                 mamba2_370m.CONFIG, n_layers=MAMBA_R8_TRAIN_LAYERS, numerics=rank8),
               f"rank {RANK}", {"amr_matmul_int8"} | ssd, MAMBA_TRAIN_BATCH, SSD_CONTEXT),
-             (f"zamba2-1.2b rank {RANK}", dataclasses.replace(zamba2_1p2b.CONFIG, numerics=rank8),
+             (f"zamba2-1.2b rank {RANK}, {ZAMBA_R8_TRAIN_GROUPS} group", dataclasses.replace(
+                 zamba2, n_layers=zamba2.pattern.n_layers, numerics=rank8),
               f"rank {RANK}", {"amr_matmul_int8"} | ssd, ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_SEQ)]
     plan.insert(4, ("amr-paper-100m amr_noise", dataclasses.replace(
         amr_paper.CONFIG, numerics=AMRNumerics("amr_noise", border=BORDER)), "amr_noise", set(),
@@ -3068,28 +3383,30 @@ def phase_train_full(device, card: str) -> tuple[dict, dict]:
 
 
 def phase_train_restart(device) -> None:
-    """Phase 9c: ``FaultTolerantLoop`` on full-width amr-paper-100m under
-    amr_inject (2 x 256 tokens), on full-width mamba2-370m at rank 0 (2 x
-    2048: the SSD kernel and its backward) and on moonshot-v1-16b-a3b at
-    full width, MOON_RESTART_LAYERS layers, replicate form at rank 0 (2 x
-    512: the dispatch with drops; 3 steps, the straight run without the
-    loop: its 29 GB state takes about 32 s a checkpoint), checkpoints every
+    """Phase 9c: ``FaultTolerantLoop`` at full width with the depth cut (the
+    script's time): amr-paper-100m on AMR_RESTART_LAYERS of 12
+    layers under amr_inject and amr_noise (2 x 256 tokens), mamba2-370m on
+    MAMBA_RESTART_LAYERS of 48 at rank 0 (2 x 2048: the SSD kernel and its
+    backward) and moonshot-v1-16b-a3b on MOON_RESTART_LAYERS of 48,
+    replicate form at rank 0 (2 x 512: the dispatch with drops; 3 steps,
+    the straight run without the loop: its 20 GB state writes at about 0.9
+    GB/s), checkpoints every
     2 steps: 4 steps straight through, then 2 steps, a raised failure, a
     restore from the step-2 checkpoint and 2 more.  The float32 losses and
     every leaf of the final states equal bit for bit."""
     from repro_torch.configs import amr_paper, mamba2_370m, moonshot_16b_a3b
     from repro_torch.numerics import AMRNumerics
 
-    restart_run(device, dataclasses.replace(
-        amr_paper.CONFIG, numerics=AMRNumerics("amr_inject", border=BORDER)), "amr_inject",
-        2, TRAIN_SEQ)
+    amr = dataclasses.replace(amr_paper.CONFIG, n_layers=AMR_RESTART_LAYERS)
+    restart_run(device, dataclasses.replace(amr, numerics=AMRNumerics("amr_inject", border=BORDER)),
+                f"amr_inject, {AMR_RESTART_LAYERS} of 12 layers", 2, TRAIN_SEQ)
     # the draws follow the restored step: the same noise after the restore
+    restart_run(device, dataclasses.replace(amr, numerics=AMRNumerics("amr_noise", border=BORDER)),
+                f"amr_noise, {AMR_RESTART_LAYERS} of 12 layers", 2, TRAIN_SEQ)
     restart_run(device, dataclasses.replace(
-        amr_paper.CONFIG, numerics=AMRNumerics("amr_noise", border=BORDER)), "amr_noise",
-        2, TRAIN_SEQ)
-    restart_run(device, dataclasses.replace(
-        mamba2_370m.CONFIG, numerics=AMRNumerics("amr_kernel", border=BORDER, rank=0)),
-        "rank 0", 2, SSD_CONTEXT)
+        mamba2_370m.CONFIG, n_layers=MAMBA_RESTART_LAYERS,
+        numerics=AMRNumerics("amr_kernel", border=BORDER, rank=0)),
+        f"rank 0, {MAMBA_RESTART_LAYERS} of 48 layers", 2, SSD_CONTEXT)
     moon = dataclasses.replace(moonshot_16b_a3b.CONFIG, n_layers=MOON_RESTART_LAYERS)
     restart_run(device, dataclasses.replace(
         moon, numerics=AMRNumerics("amr_kernel", border=BORDER, rank=0),
@@ -3311,6 +3628,11 @@ def profile_serve(device, card: str, cfg, params, prompts, gen: int, capacity: i
             log(f"[profile]   {dev_us / 1e3:9.3f} ms  {count:6d} calls  {key[:100]}")
 
 
+
+# the phases ``--only`` runs, each on its own after the build
+ONLY_PHASES = {"dense": lambda device, card: phase_dense_rest(device, card),
+               "conformance": lambda device, card: phase_conformance(device)}
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", type=Path, default=None,
@@ -3320,6 +3642,9 @@ def main(argv: list[str] | None = None) -> int:
                         help=argparse.SUPPRESS)  # one timing process of --parent's A/B
     parser.add_argument("--time-serve", type=Path, default=None, metavar="SRC",
                         help=argparse.SUPPRESS)  # one serving process of --parent's A/B
+    parser.add_argument("--only", default=None, metavar="PHASES",
+                        help="comma-separated phases to run after the build (" +
+                             ", ".join(ONLY_PHASES) + "); prints no kernels line")
     args = parser.parse_args(argv)
     for src in (args.time_kernels, args.time_serve):
         if src is not None:
@@ -3351,6 +3676,22 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     device = torch.device("cuda")
     t_start = time.perf_counter()
+    if args.only is not None:
+        phases = args.only.split(",")
+        unknown = sorted(set(phases) - set(ONLY_PHASES))
+        if unknown:
+            print(f"chip_smoke: unknown phases {unknown}; known: {list(ONLY_PHASES)}",
+                  file=sys.stderr)
+            return 1
+        phase_build()
+        card = card_line()
+        for name in phases:
+            t0 = time.perf_counter()
+            ONLY_PHASES[name](device, card)
+            log(f"[{name}] phase {time.perf_counter() - t0:.1f}s")
+        log(f"[done] {time.perf_counter() - t_start:.1f}s (--only {args.only}: no kernels line)")
+        print(card, flush=True)
+        return 0
 
     from repro_torch.configs import (gemma3_1b, gemma_2b, internvl2_76b, mamba2_370m,
                                      moonshot_16b_a3b, whisper_small, zamba2_1p2b)
@@ -3397,11 +3738,18 @@ def main(argv: list[str] | None = None) -> int:
     launches["internvl2-76b"] = phase_vlm(device, card, internvl2_76b.CONFIG)
     log(f"[internvl2-76b] phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    dense = phase_dense_rest(device, card)
+    launches.update(dense)
+    log(f"[dense] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     phase_train_parity(device)
     phase_train_parity_ssm(device)
     train, launches["train"] = phase_train_full(device, card)
     phase_train_restart(device)
     log(f"[train] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    conformance = phase_conformance(device)
+    log(f"[conformance] phase {time.perf_counter() - t0:.1f}s")
 
     src = "src/repro_torch/kernels/amr_matmul/csrc/"
     # the gemma-2b decode shape each AMR kernel spends most time on at border
@@ -3475,7 +3823,11 @@ def main(argv: list[str] | None = None) -> int:
                      label: counts.get(k.name, 0)
                      for label, counts in launches["internvl2-76b"].items()},
                  "launches_per_train_step": {label: per_step.get(k.name, 0)
-                                             for label, per_step in train.items()}}
+                                             for label, per_step in train.items()},
+                 "launches_dense_rest": {f"{model} {label}": counts[k.name]
+                                         for model, runs in dense.items()
+                                         for label, counts in runs.items()},
+                 "launches_conformance": conformance[k.name]}
         if model == "attn_fused":
             entry.update(unfused_ms=row["unfused_ms"], op_ms=row["op_ms"],
                          launches_in_served_runs=served[k.name])

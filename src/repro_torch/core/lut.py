@@ -35,18 +35,28 @@ def _int8_value_grid() -> tuple[np.ndarray, np.ndarray]:
     return np.repeat(vals, 256), np.tile(vals, 256)
 
 
+def _int8_operand_bits() -> tuple[np.ndarray, np.ndarray]:
+    """Stored operand bits of all 2^16 int8 pairs, in table order."""
+    a, b = _int8_value_grid()
+    xb = ppgen.flatten_operand_bits(mrsd.encode(a, _N_DIGITS))
+    yb = ppgen.flatten_operand_bits(mrsd.encode(b, _N_DIGITS))
+    return xb, yb
+
+
+def schedule_table(schedule: reduction.Schedule) -> np.ndarray:
+    """(256, 256) int32 products of a 2-digit schedule, by the numpy replay
+    (``reduction.evaluate_split``) over every int8 pair."""
+    prod = reduction.split_to_float(*reduction.evaluate_split(schedule, *_int8_operand_bits()))
+    return prod.astype(np.int32).reshape(256, 256)  # exact: 2-digit products < 2**19
+
+
 @lru_cache(maxsize=None)
 def build_int8_lut(border: int | None) -> np.ndarray:
     """(256, 256) int32: LUT[a+128, b+128] = AMR-MUL_2digit(a, b).
 
     Cached per border; callers must not mutate the returned array.
     """
-    a, b = _int8_value_grid()
-    schedule = reduction.get_schedule(_N_DIGITS, border)
-    xb = ppgen.flatten_operand_bits(mrsd.encode(a, _N_DIGITS))
-    yb = ppgen.flatten_operand_bits(mrsd.encode(b, _N_DIGITS))
-    prod = reduction.split_to_float(*reduction.evaluate_split(schedule, xb, yb))
-    table = prod.astype(np.int32).reshape(256, 256)  # exact: |products| < 2**16
+    table = schedule_table(reduction.get_schedule(_N_DIGITS, border))
     table.flags.writeable = False
     return table
 

@@ -40,7 +40,11 @@ def kernel_table(border: int | None, device: torch.device) -> torch.Tensor:
 
 def check_accumulation(k: int, border: int | None, what: str) -> None:
     """Raise when K * max|product| could saturate the int32 accumulator."""
-    max_abs = lut_lib.table_max_abs(border)
+    check_max_abs(k, lut_lib.table_max_abs(border), what)
+
+
+def check_max_abs(k: int, max_abs: int, what: str) -> None:
+    """Raise when K products of at most ``max_abs`` could saturate int32."""
     if k * max_abs >= 2**31:
         raise ValueError(
             f"{what} int32 accumulator can saturate: K={k} with "

@@ -58,7 +58,7 @@ from repro_torch.core import lut as lut_lib
 from repro_torch.kernels.amr_matmul.ref import lut_matmul_ref
 
 from . import registry
-from .context import current_scope, noise_key
+from .context import _value, current_scope, noise_key
 from .quant import quantize_int8, quantize_int8_ste
 
 
@@ -117,19 +117,34 @@ def matmul_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.reshape(*a.shape[:-1], b.shape[-1])
 
 
+def _lut_matmul(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor, max_abs: int,
+                what: str, quantizer=quantize_int8) -> torch.Tensor:
+    """The plain gather's matmul (JAX ``_lut_matmul``): quantize, gather
+    from ``table``, sum in integers, rescale.
+
+    ``quantizer`` is the int8 front end: ``quantize_int8`` (the amr_lut
+    mode) or ``quantize_int8_ste`` (the inject path's, which its audit
+    oracle must share: on bf16 inputs the two round differently).  Raises
+    ``ValueError`` when K * max|product| could saturate int32, the guard the
+    inject path applies, so both reject the same shapes.
+    """
+    from repro_torch.kernels.amr_matmul.ops import check_max_abs  # lazy: import cycle
+
+    check_max_abs(a.shape[-1], max_abs, what)
+    qa, sa = quantizer(a, axis=-1)
+    qb, sb = quantizer(b, axis=-2)
+    acc = lut_matmul_ref(qa.detach(), qb.detach(), table).float()
+    return acc * sa * sb
+
+
 def matmul_amr_lut(a: torch.Tensor, b: torch.Tensor, border: int) -> torch.Tensor:
     """Bit-exact AMR-MUL matmul via the plain gather (oracle; small shapes).
 
     Raises ``ValueError`` when K * max|product| could saturate int32, as the
     JAX package's oracle does.
     """
-    from repro_torch.kernels.amr_matmul.ops import check_accumulation  # lazy: import cycle
-
-    check_accumulation(a.shape[-1], border, f"amr_lut(border={border})")
-    qa, sa = quantize_int8(a, axis=-1)
-    qb, sb = quantize_int8(b, axis=-2)
-    acc = lut_matmul_ref(qa, qb, lut_lib.table_tensor(border, a.device)).float()
-    return acc * sa * sb
+    return _lut_matmul(a, b, lut_lib.table_tensor(border, a.device),
+                       lut_lib.table_max_abs(border), f"amr_lut(border={border})")
 
 
 def _lowrank_fwd(a: torch.Tensor, b: torch.Tensor, border: int, rank: int) -> torch.Tensor:
@@ -297,6 +312,49 @@ def matmul_amr_inject(a: torch.Tensor, b: torch.Tensor, numerics: AMRNumerics) -
     return _straight_through(partial(_inject_fwd, numerics=numerics), a, b)
 
 
+# product tables of registered schedules, keyed by (handle, device): the
+# schedule they were built from, the table, its max|product|
+_ORACLE_TABLES: dict[tuple, tuple] = {}
+
+
+def _inject_oracle(a: torch.Tensor, b: torch.Tensor, numerics: AMRNumerics) -> torch.Tensor:
+    """The plain table gather of the amr_inject products (the audit oracle).
+
+    Gathers from a table built independently of the circuit replay:
+    ``core/lut``'s for the paper's schedule at ``border``, or
+    ``core/dse/export.lut_from_schedule`` (the numpy ``evaluate_split``
+    over the 2^16 operand pairs) for a registered schedule
+    (``numerics.schedule_ref``), so a zero audit difference shows the
+    replay equal to the tabulated multiplier, not merely to itself.
+    Quantizes with the inject path's front end, ``quantize_int8_ste``.
+    """
+    if numerics.schedule_ref is None:
+        table = lut_lib.table_tensor(numerics.border, a.device)
+        max_abs = lut_lib.table_max_abs(numerics.border)
+        what = f"amr_inject(border={numerics.border}) oracle"
+    else:
+        table, max_abs = _oracle_table(numerics, a.device)
+        what = f"amr_inject[{numerics.schedule_ref}] oracle"
+    return _lut_matmul(a, b, table, max_abs, what, quantizer=quantize_int8_ste)
+
+
+def _oracle_table(numerics: AMRNumerics, device: torch.device) -> tuple[torch.Tensor, int]:
+    """The registered schedule's product table on ``device`` and its
+    max|product|, rebuilt when the handle names another schedule."""
+    from repro_torch.core.dse.export import lut_from_schedule  # lazy: import cycle
+
+    from . import injection
+
+    schedule = injection.resolve_schedule(numerics)
+    key = (numerics.schedule_ref, torch.device(device))
+    cached = _ORACLE_TABLES.get(key)
+    if cached is None or cached[0] is not schedule:
+        tab = lut_from_schedule(schedule)
+        cached = (schedule, torch.from_numpy(tab).to(device), int(abs(tab).max()))
+        _ORACLE_TABLES[key] = cached
+    return cached[1], cached[2]
+
+
 @lru_cache(maxsize=64)
 def _noise_constants(border: int) -> tuple[float, float]:
     s = lut_lib.error_stats(border)
@@ -375,11 +433,54 @@ def approx_matmul(a: torch.Tensor, b: torch.Tensor, numerics=None, *, key=None,
     layer.  ``site`` with the ambient scope's step, layer and unit also
     picks the ``amr_noise`` stream; an explicit ``key`` (one key or a
     per-request batch, ``context.noise_key``) overrides that derivation.
+
+    Under ``numerics_scope(audit=AuditTrace())`` a reference is computed
+    beside the impl and the site's difference recorded (per site, and per
+    (site, layer) where the scope has a layer): ``compare="oracle"`` against
+    the mode's bit-exact ``oracle`` in product-grid steps,
+    ``compare="exact"`` against the exact float matmul, with its error mass.
     """
+    scope = current_scope()
     numerics = resolve_numerics(numerics, site)
     if numerics is None or numerics.is_exact():
         return matmul_exact(a, b)
-    return registry.get_mode(numerics.mode).impl(a, b, numerics, key=key, site=site)
+    spec = registry.get_mode(numerics.mode)
+    out = spec.impl(a, b, numerics, key=key, site=site)
+    if scope.audit is not None:
+        _audit(scope, spec, out, a, b, numerics, site)
+    return out
+
+
+def _audit(scope, spec, out: torch.Tensor, a: torch.Tensor, b: torch.Tensor, numerics,
+           site: str | None) -> None:
+    """Record one call site's difference to its reference in ``scope.audit``
+    (read to the host here: the audit's one sync a call)."""
+    audit = scope.audit
+    with torch.no_grad():
+        out = out.detach()
+        if audit.compare == "exact":
+            err = (out.float() - matmul_exact(a.detach(), b.detach()).float()).abs()
+            diff, mass = err.max(), err.sum()
+        elif spec.oracle is not None:
+            diff = _grid_diff(out, spec.oracle(a.detach(), b.detach(), numerics), a, b)
+            mass = diff
+        else:
+            return
+    layer = _value(scope.layer)
+    audit.record(site or "<unlabeled>", float(diff), layer=layer, mass=float(mass))
+
+
+def _grid_diff(out: torch.Tensor, ref: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """Max |out - ref| in integer-product-grid steps (the audit metric).
+
+    Impl and oracle are both ``float(acc) * sa * sb`` on the same scales,
+    so dividing the scales back out and rounding leaves 0 for float noise
+    in the rescale and >= 1 for a real product mismatch (exact while |acc|
+    < 2**24: the small shapes the matrix audits).
+    """
+    quantum = quantize_int8(a.detach(), axis=-1)[1] * quantize_int8(b.detach(), axis=-2)[1]
+    return (torch.round(out / quantum) - torch.round(ref / quantum)).abs().max()
 
 
 # --------------------------------------------------------------------------
@@ -417,7 +518,8 @@ registry.register_mode(
 
 registry.register_mode(
     "amr_inject", lambda a, b, nm, *, key=None, site=None: matmul_amr_inject(a, b, nm),
-    required_params=("border",), validate=_validate_inject, accepts_params=("schedule_ref",),
+    required_params=("border",), validate=_validate_inject, oracle=_inject_oracle,
+    accepts_params=("schedule_ref",),
     description="exact error injection by circuit replay (any schedule)")
 
 registry.register_mode(

@@ -13,9 +13,17 @@ rest into its key (``noise_key``).
 
 Scopes nest: an inner value overrides, an absent one inherits.  The stack
 is thread-local, so two threads running models never see each other's
-entries.  Not ported yet: the audit and shape-probe channels, which come
-with their consumers (the conformance inject audit and the saturation
-proof).
+entries.
+
+**Audit.**  The scope also carries the conformance audit channel
+(``audit=``): an :class:`AuditTrace` that, while in scope, makes
+``approx_matmul`` compare every call site's output with a reference (the
+mode's bit-exact ``registry.ModeSpec.oracle``, or the exact float matmul)
+and record the per-site difference.  The port runs eagerly, so the record
+is made in the call itself (JAX records through ``jax.debug.callback``);
+the difference is read to the host only while an audit is in scope.  Not
+ported: the shape-probe channel, which comes with its consumer, the
+saturation proof.
 
 **Keys.**  JAX's threefry stream is not reproduced: a key here is a 64-bit
 integer, ``root_key(seed)`` mixed by ``fold_in`` with the call-site id
@@ -44,7 +52,7 @@ from typing import Any
 import torch
 
 __all__ = ["NumericsScope", "numerics_scope", "request_scope", "current_scope", "HostOnce",
-           "root_key", "fold_in", "noise_key"]
+           "AuditTrace", "root_key", "fold_in", "noise_key"]
 
 _MASK64 = (1 << 64) - 1
 # one tag per coordinate: an absent coordinate is skipped, and a present one
@@ -104,19 +112,71 @@ def _value(v):
     return None if v is None else int(v)
 
 
+class AuditTrace:
+    """Per-call-site record of |mode output - reference output| (JAX
+    ``AuditTrace``).
+
+    ``sites`` maps a call-site label to ``{"calls", "max_abs_diff",
+    "sum_abs_diff"}``; where the scope carries a layer coordinate, the same
+    record accumulates per ``(site, layer)`` in ``coords``.
+
+    ``compare`` selects the reference:
+      * ``"oracle"`` (default): the mode's bit-exact ``ModeSpec.oracle``,
+        diffed in integer-product-grid steps (a real mismatch records
+        >= 1.0): the conformance matrix's inject-vs-table proof;
+      * ``"exact"``: the exact float matmul of the same operands; the diff
+        is the mode's approximation error and ``sum_abs_diff`` its mass.
+    """
+
+    def __init__(self, compare: str = "oracle"):
+        if compare not in ("oracle", "exact"):
+            raise ValueError(
+                f"AuditTrace compare must be 'oracle' or 'exact', got {compare!r}")
+        self.compare = compare
+        self.sites: dict[str, dict[str, Any]] = {}
+        self.coords: dict[tuple[str, int], dict[str, Any]] = {}
+
+    @staticmethod
+    def _accum(ent: dict, diff: float, mass: float) -> None:
+        ent["calls"] += 1
+        ent["max_abs_diff"] = max(ent["max_abs_diff"], diff)
+        ent["sum_abs_diff"] += mass
+
+    def record(self, site: str, diff, layer=None, mass=None) -> None:
+        d = float(diff)
+        m = d if mass is None else float(mass)
+        zero = {"calls": 0, "max_abs_diff": 0.0, "sum_abs_diff": 0.0}
+        self._accum(self.sites.setdefault(site, dict(zero)), d, m)
+        if layer is not None:
+            self._accum(self.coords.setdefault((site, int(layer)), dict(zero)), d, m)
+
+    @property
+    def max_abs_diff(self) -> float:
+        return max((e["max_abs_diff"] for e in self.sites.values()), default=0.0)
+
+    @property
+    def calls(self) -> int:
+        return sum(e["calls"] for e in self.sites.values())
+
+    def bit_exact(self) -> bool:
+        return self.max_abs_diff == 0.0
+
+
 @dataclasses.dataclass(frozen=True)
 class NumericsScope:
     """``step``: the training step or decode position (an int, a (B,)
     vector of per-request positions, or a ``HostOnce`` of either);
     ``layer``: the flat layer index; ``unit``: the instance of a sub-layer
     that shares one call site (a request of the MoE layer's per-request
-    dispatch); ``static_layer``: the flat layer index as a plain int, the
-    coordinate per-layer policies resolve against (None outside the
-    decoder's layers)."""
+    dispatch); ``audit``: an ``AuditTrace`` recording every call site's
+    difference to its reference, or None; ``static_layer``: the flat layer
+    index as a plain int, the coordinate per-layer policies resolve against
+    (None outside the decoder's layers)."""
 
     step: Any = None
     layer: Any = None
     unit: Any = None
+    audit: Any = None
     static_layer: int | None = None
 
 
@@ -131,14 +191,16 @@ def _stack() -> list:
 
 
 @contextlib.contextmanager
-def numerics_scope(*, step=None, layer=None, unit=None, static_layer=None):
-    """Provide step / layer / unit coordinates to the matmuls run inside."""
+def numerics_scope(*, step=None, layer=None, unit=None, audit=None, static_layer=None):
+    """Provide step / layer / unit coordinates (and the optional audit
+    channel) to the matmuls run inside."""
     cur = current_scope()
     stack = _stack()
     stack.append(NumericsScope(
         step=_host(step) if step is not None else cur.step,
         layer=_host(layer) if layer is not None else cur.layer,
         unit=_host(unit) if unit is not None else cur.unit,
+        audit=audit if audit is not None else cur.audit,
         static_layer=static_layer if static_layer is not None else cur.static_layer))
     try:
         yield

@@ -30,6 +30,10 @@ class ModeSpec:
 
     ``required_params`` are ``AMRNumerics`` fields that must be non-None;
     ``validate`` is an extra check run at policy construction.
+    ``oracle`` is an optional bit-exact reference ``(a, b, numerics) ->
+    Tensor`` of the same products: under ``numerics_scope(audit=
+    AuditTrace())`` ``approx_matmul`` evaluates it beside ``impl`` at every
+    call site and records the difference (the conformance inject audit).
     ``defaults`` (field -> value) are applied by :func:`default_policy`;
     ``accepts_params`` names the fields the mode consumes beyond its
     required ones (:func:`default_policy` drops overrides of the others).
@@ -41,6 +45,7 @@ class ModeSpec:
     required_params: tuple[str, ...] = ()
     description: str = ""
     validate: Callable[[Any], None] | None = None
+    oracle: Impl | None = None
     defaults: tuple[tuple[str, Any], ...] = ()
     accepts_params: tuple[str, ...] = ()
     exact: bool = False
@@ -52,15 +57,15 @@ _REGISTRY: dict[str, ModeSpec] = {}
 
 def register_mode(name: str, impl: Impl, *, required_params: tuple[str, ...] = (),
                   description: str = "", validate: Callable[[Any], None] | None = None,
-                  defaults: dict[str, Any] | None = None, accepts_params: tuple[str, ...] = (),
-                  exact: bool = False) -> ModeSpec:
+                  oracle: Impl | None = None, defaults: dict[str, Any] | None = None,
+                  accepts_params: tuple[str, ...] = (), exact: bool = False) -> ModeSpec:
     """Register a numerics mode.  Names are unique: re-registration raises."""
     if not name or not isinstance(name, str):
         raise ValueError(f"mode name must be a non-empty string, got {name!r}")
     if name in _REGISTRY:
         raise ValueError(f"numerics mode {name!r} is already registered")
     spec = ModeSpec(name=name, impl=impl, required_params=tuple(required_params),
-                    description=description, validate=validate,
+                    description=description, validate=validate, oracle=oracle,
                     defaults=tuple(sorted((defaults or {}).items())),
                     accepts_params=tuple(accepts_params), exact=exact)
     _REGISTRY[name] = spec

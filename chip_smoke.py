@@ -285,9 +285,22 @@ Phases (any failure raises, and the run exits non-zero):
    ``parity_cause`` (the decode on the forward's own cache equal to the
    forward, the first differing cache layer named); one summary line, a
    line per failed row, and the phase raises if any failed.
+11. core — the Monte-Carlo engine and the rest of ``repro_torch.core``
+   (``phase_core``; torch ops on the card, no hand kernel of its own): the
+   engine's exact (lo, hi) splits equal numpy's at 2, 4 and 8 digits
+   (borders None, 4, 8 and the 15 Table I points); Table I at the paper's
+   own sample counts (50 K, 500 K, 1 M) through ``AMRMultiplier(...,
+   engine="torch").monte_carlo`` with MRED / MARED / NMED, seconds and
+   samples/s beside the paper's MARED; the int8 tables of borders None and
+   0-14 built on the card equal to the served numpy tables; the port's own
+   DSE (``search_assignments`` giving ``DSE_CANDIDATE``, a ``pareto_sweep``
+   at 4 and 8 digits whose frontier points' metrics equal a direct
+   one-schedule replay's, ``select_border`` under an error budget); and the
+   engine's products over all 65,536 int8 pairs equal to the CUDA replay
+   kernel's (a third evaluator of the same lowering).
 
-``--only dense,conformance`` runs the build and those phases alone (no
-kernels line): a quick check of this slice's paths.
+``--only dense,conformance,core`` runs the build and those phases alone (no
+kernels line): a quick check of those slices' paths.
 
 Bounds: the larger of the bytes over 3.35 TB/s and the operations over the
 peak rate of their type: float32 67 T/s (the H100 SXM data sheet, an FMA
@@ -403,6 +416,22 @@ DSE_CANDIDATE = (
     (4, 8, 2, 1, (("FA_PN1", 2, 1),)),
 )
 MOON_RESTART_LAYERS = 1                        # phase 9c
+# phase 11 (``phase_core``): the paper's Table I design points and its MARED
+# there (AMR-MUL, Table I), and its Monte-Carlo sample counts (§IV)
+TABLE1_MARED = {
+    2: {6: 2.98e-2, 7: 4.37e-2, 8: 1.06e-1, 9: 2.68e-1, 10: 5.97e-1},
+    4: {12: 2.71e-4, 15: 3.88e-3, 18: 2.50e-2, 21: 1.51e-1, 24: 5.33e-1},
+    8: {45: 9.29e-4, 48: 7.09e-3, 50: 1.61e-2, 53: 1.58e-1, 55: 5.18e-1},
+}
+TABLE1_SAMPLES = {2: 50_000, 4: 500_000, 8: 1_000_000}
+CORE_CHUNK = 32768                             # (a): monte_carlo's chunk, the pairs checked
+CORE_NUMPY_WORKERS = 6                         # (a), (d): processes for the numpy checks
+# (d): the card's whole-multiplier DSE, per digit width: borders, Monte-Carlo
+# samples (16384 a chunk), one candidate a border; the search at dse_bench's
+# quick sizes; select_border's error budget over the 4-digit borders
+CORE_SWEEP = {4: ((12, 18, 24), 65536), 8: ((50,), 32768)}
+CORE_SEARCH = dict(beam_width=16, branch_cap=4, max_nodes=8000)
+CORE_BUDGET = ("mared", 1e-2)
 # depth cuts that keep the script within its time (PERF.md §4)
 MOON_SERVE_REQUESTS = SLOTS                    # phase 8c: moonshot's served runs, 7 decode steps
 MAMBA_R8_TRAIN_LAYERS = 16                     # phase 9b: mamba2-370m rank 8, 16 of 48 layers
@@ -2830,6 +2859,280 @@ def phase_conformance(device) -> dict:
     return counts
 
 
+def _digits_bits(n_digits: int, batch: int, seed: int) -> tuple:
+    """Seeded random MRSD operands: (x digits, y digits, x bits, y bits)."""
+    from repro_torch.core import mrsd, ppgen
+
+    rng = np.random.default_rng(seed)
+    xd, yd = mrsd.random_digits(rng, n_digits, batch), mrsd.random_digits(rng, n_digits, batch)
+    return xd, yd, ppgen.flatten_operand_bits(xd), ppgen.flatten_operand_bits(yd)
+
+
+def _same_split(what: str, got: tuple, want: tuple) -> None:
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+        raise AssertionError(f"[core] {what}: the card's (lo, hi) differ from numpy's")
+
+
+def _numpy_split(job: tuple) -> tuple:
+    """A worker's numpy replay: (schedule, x bits, y bits) -> (lo, hi)."""
+    from repro_torch.core import reduction
+
+    return reduction.evaluate_split(*job)
+
+
+def _numpy_splits(jobs: list) -> list:
+    """``reduction.evaluate_split`` of each (schedule, x bits, y bits), in
+    CORE_NUMPY_WORKERS spawned processes (the 8-digit replays take seconds
+    each on the host), all stopped before it returns."""
+    import multiprocessing
+
+    with multiprocessing.get_context("spawn").Pool(CORE_NUMPY_WORKERS) as pool:
+        return pool.map(_numpy_split, jobs, chunksize=1)
+
+
+def _chunk_breakdown(m, device, card: str, reps: int = 4) -> dict:
+    """Where one 32768-sample Monte-Carlo chunk of ``m`` goes: ms of the
+    host's draw, its bit flattening (``monte_carlo`` flattens for the
+    approximate and the exact multiplier both), one engine call (pack, copy
+    in, replay, copy out), the float64 sums; and the device busy ms and
+    idle share of ``reps`` chunks of ``monte_carlo`` under the profiler."""
+    import torch
+
+    from repro_torch.core import engine, metrics, mrsd, ppgen
+
+    n, rng = m.cfg.n_digits, np.random.default_rng(1)
+    eng = engine.get_engine(n, m.cfg.border, device)
+    ms: dict = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        for _ in range(reps):
+            res = fn()
+        ms[name] = (time.perf_counter() - t) / reps * 1e3
+        return res
+
+    xd, yd = timed("draw", lambda: (mrsd.random_digits(rng, n, 32768),
+                                    mrsd.random_digits(rng, n, 32768)))
+    xb, yb = timed("flatten", lambda: (ppgen.flatten_operand_bits(xd),
+                                       ppgen.flatten_operand_bits(yd)))
+    lo, hi = timed("engine", lambda: eng.evaluate_split(xb, yb))
+    acc = metrics.ErrorAccumulator(max_abs=1.0)
+    timed("sums", lambda: acc.update_split(lo, hi, lo, hi))
+    def body(_):
+        t = time.perf_counter()
+        m.monte_carlo(reps * 32768, seed=1)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    wall, prof = profile_windows(body, "core monte_carlo")
+    busy = sum(r[0] for r in prof) / 1e3 if prof else None
+    log(f"[core] (b) a 32768-sample chunk at ({n}, {m.cfg.border}), ms: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in ms.items()) + f"; monte_carlo of {reps} chunks under the "
+        f"profiler: {busy_text(busy, wall)} of {wall:.1f} ms wall, "
+        f"{sum(r[1] for r in prof)} device events ({card})")
+    return dict(ms, busy_ms=busy, wall_ms=wall)
+
+
+def _direct_metrics(schedule, n_samples: int, device, chunk: int = 16384) -> dict:
+    """``measure_candidates``' protocol with each chunk replayed by the
+    candidate's own engine and the exact one's, one schedule a call (the
+    JAX package's ``dse_bench`` replay_match oracle)."""
+    from repro_torch.core import engine, metrics, mrsd, ppgen
+
+    n = schedule.n_digits
+    eng, exact = engine.compile_schedule(schedule, device), engine.get_engine(n, None, device)
+    acc = metrics.ErrorAccumulator(max_abs=(16.0 ** n * (16.0 / 15.0)) ** 2)
+    rng = np.random.default_rng(0)
+    remaining = n_samples
+    while remaining > 0:
+        b = min(chunk, remaining)
+        xb = ppgen.flatten_operand_bits(mrsd.random_digits(rng, n, b))
+        yb = ppgen.flatten_operand_bits(mrsd.random_digits(rng, n, b))
+        acc.update_split(*eng.evaluate_split(xb, yb), *exact.evaluate_split(xb, yb))
+        remaining -= b
+    return acc.result()
+
+
+def phase_core(device, card: str) -> dict:
+    """Phase 11: the Monte-Carlo engine and the rest of ``core/`` on the card
+    (``repro_torch.core``; no hand kernel: the engine is torch ops).
+
+    (a) On each width's first Monte-Carlo chunk (``monte_carlo``'s: seed 0,
+    CORE_CHUNK pairs), the torch engine's exact (lo, hi) splits equal the
+    numpy ``reduction.evaluate_split``'s (replayed in CORE_NUMPY_WORKERS
+    processes) bit for bit at n_digits {2, 4, 8} x border {None, 4, 8} and
+    the 15 Table I points, and ``evaluate_split_many`` and a
+    ``CandidateBatch`` equal the one-schedule calls.  (b) Table I at the
+    paper's own sample counts (TABLE1_SAMPLES) through
+    ``AMRMultiplier(...).monte_carlo`` on the card at every point: MRED /
+    MARED / NMED, seconds and samples/s beside the paper's MARED; where one
+    chunk's time goes at (8, 50) (``_chunk_breakdown``).  (c)
+    ``build_int8_luts`` on the card equal to the numpy tables that serving
+    reads, for None and borders 0-14.  (d) The port's
+    ``search_assignments(2, 8, ...)`` gives ``DSE_CANDIDATE``;
+    ``pareto_sweep`` at CORE_SWEEP's sizes with
+    ``energy.literal_energy_proxy``, every frontier point's measured metrics
+    equal to a direct one-schedule replay's (``_direct_metrics``: replay
+    match), and the sweep's candidate batch on its first chunk (every
+    candidate and the exact schedule) equal to numpy's; ``select_border``
+    over the two widest 4-digit borders under CORE_BUDGET equal to the
+    cheapest swept point of those within it.  (e) At 2 digits over all
+    65,536 int8 pairs, the engine's products equal the CUDA replay kernel's
+    (``kernels/inject_replay``; its launches here are comparisons, not
+    counted) and the numpy table, for the exact schedule, border 8 and the
+    DSE candidate.  Raises on any mismatch.  Returns the phase's figures."""
+    import torch
+
+    from repro_torch.core import AMRMultiplier, dse, energy, engine, lut, reduction
+    from repro_torch.core.engine import compile_injector, get_injector
+    from repro_torch.kernels.inject_replay.ops import inject_replay_matmul
+
+    out: dict = {}
+    # (a) bit-exact engine, on each width's first Monte-Carlo chunk
+    t0 = time.perf_counter()
+    mults, jobs, card_splits = {}, [], []
+    for n, points in TABLE1_MARED.items():
+        xd, yd, xb, yb = _digits_bits(n, CORE_CHUNK, seed=0)
+        borders = tuple(dict.fromkeys((None, 4, 8, *points)))
+        singles = {}
+        for b in borders:
+            m = mults[n, b] = AMRMultiplier(n, b, device=device)
+            singles[b] = m.multiply_digits_split(xd, yd)
+            card_splits.append((f"({n}, {b}) chunk 1", singles[b]))
+            jobs.append((m.schedule, xb, yb))
+        many = engine.evaluate_split_many(n, borders, xb, yb, device)
+        batch = engine.compile_candidates([mults[n, b].schedule for b in borders], device)
+        for b, got in zip(borders, batch.evaluate_split(xb, yb)):
+            _same_split(f"({n}, {b}) evaluate_split_many", many[b], singles[b])
+            _same_split(f"({n}, {b}) CandidateBatch", got, singles[b])
+    for (what, got), want in zip(card_splits, _numpy_splits(jobs)):
+        _same_split(what, got, want)
+    out["a_s"] = time.perf_counter() - t0
+    log(f"[core] (a) {len(jobs)} design points on each width's first Monte-Carlo chunk "
+        f"({CORE_CHUNK} pairs): the card's splits equal numpy's, evaluate_split_many and "
+        f"CandidateBatch the one-schedule calls ({out['a_s']:.1f}s, schedules built and "
+        f"numpy replays included; {card})")
+
+    # (b) Table I at the paper's sample counts
+    t1 = time.perf_counter()
+    rows = []
+    for n, points in TABLE1_MARED.items():
+        exact = mults[n, None]
+        for b, paper in points.items():
+            m = mults[n, b]
+            ts = time.perf_counter()
+            r = m.monte_carlo(TABLE1_SAMPLES[n], seed=0, exact_ref=exact)
+            s = time.perf_counter() - ts
+            if r["n_samples"] != TABLE1_SAMPLES[n] or not all(map(math.isfinite, r.values())):
+                raise AssertionError(f"[core] Table I ({n}, {b}): {r}")
+            row = dict(n_digits=n, border=b, mred=r["mred"], mared=r["mared"], nmed=r["nmed"],
+                       paper_mared=paper, samples=TABLE1_SAMPLES[n], seconds=s,
+                       samples_per_s=TABLE1_SAMPLES[n] / s)
+            rows.append(row)
+            log(f"[core] (b) Table I {n} digits, border {b}: MRED {r['mred']:+.4e}, MARED "
+                f"{r['mared']:.4e} (paper {paper:.2e}, ratio {r['mared'] / paper:.3f}), NMED "
+                f"{r['nmed']:+.4e}; {TABLE1_SAMPLES[n]} samples in {s:.3f}s, "
+                f"{TABLE1_SAMPLES[n] / s:.4g} samples/s ({card})")
+    head = next(r for r in rows if (r["n_digits"], r["border"]) == (8, 50))
+    log(f"[core] (b) headline: 8 digits at border 50, MARED {head['mared']:.4e} against the "
+        f"paper's {head['paper_mared']:.2e} ({card})")
+    out["table1"], out["b_s"] = rows, time.perf_counter() - t1
+    out["chunk_ms"] = _chunk_breakdown(mults[8, 50], device, card)
+
+    # (c) LUT builds on the card against the served numpy tables
+    t2 = time.perf_counter()
+    borders = (None, *range(15))
+    built = lut.build_int8_luts(borders, device=device)
+    c_build = time.perf_counter() - t2
+    for b in borders:
+        rec = lut.lut_record(b, "torch", device)
+        if rec.device != torch.device(device) or rec.table is not built[b]:
+            raise AssertionError(f"[core] (c) border {b}: provenance {rec.engine}, {rec.device}")
+        if not np.array_equal(built[b], lut.build_int8_lut(b, engine="numpy")):
+            raise AssertionError(f"[core] (c) border {b}: the card's table differs from numpy's")
+    out["c_build_s"] = c_build
+    log(f"[core] (c) {len(borders)} int8 tables built on the card in {c_build:.3f}s, each "
+        f"equal to the served numpy table ({card})")
+
+    # (d) the whole-multiplier DSE
+    t3 = time.perf_counter()
+    [cand] = dse.search_assignments(2, BORDER, k=1, beam_width=8, branch_cap=4, max_nodes=2000)
+    if [dataclasses.astuple(c) for c in cand.choices] != [tuple(c) for c in DSE_CANDIDATE]:
+        raise AssertionError("[core] (d) the port's search no longer gives DSE_CANDIDATE")
+    sweep, jobs, card_splits = {}, [], []
+    for n, (borders, samples) in CORE_SWEEP.items():
+        ts = time.perf_counter()
+        points = dse.pareto_sweep(n, borders, k=1, n_samples=samples, chunk=16384,
+                                  cost_fn=energy.literal_energy_proxy, device=device,
+                                  **CORE_SEARCH)
+        s = time.perf_counter() - ts
+        sweep[n] = points
+        for pt in points:
+            match = (_direct_metrics(pt.schedule, samples, device) == pt.measured
+                     if pt.frontier else None)
+            log(f"[core] (d) {n} digits, border {pt.border}, candidate {pt.candidate}: "
+                f"expected error {float(pt.assignment.expected_error):+.6g}, MRED "
+                f"{pt.measured['mred']:+.4e}, MARED {pt.measured['mared']:.4e}, energy "
+                f"{pt.energy:.0f}, nodes {pt.assignment.nodes}, complete "
+                f"{pt.assignment.complete}, frontier {pt.frontier}, replay_match {match}")
+            if match is False:
+                raise AssertionError(f"[core] (d) ({n}, {pt.border}, {pt.candidate}): the "
+                                     f"candidate batch's metrics differ from a direct replay")
+        log(f"[core] (d) {n} digits: {len(points)} candidates, "
+            f"{sum(p.frontier for p in points)} on the frontier, {samples} samples each; "
+            f"search + measure {s:.1f}s ({card})")
+        # the sweep's candidate batch (its candidates, then the exact
+        # schedule, as measure_candidates compiles it) on its first chunk
+        scheds = [*(pt.schedule for pt in points), reduction.get_schedule(n, None)]
+        _, _, xb, yb = _digits_bits(n, min(16384, samples), seed=0)
+        outs = engine.compile_candidates(scheds, device).evaluate_split(xb, yb)
+        for i, (sched, got) in enumerate(zip(scheds, outs)):
+            card_splits.append((f"(d) {n} digits, candidate batch entry {i}", got))
+            jobs.append((sched, xb, yb))
+    for (what, got), want in zip(card_splits, _numpy_splits(jobs)):
+        _same_split(what, got, want)
+    log(f"[core] (d) the sweeps' candidate batches on their first chunk equal numpy's: "
+        f"{len(jobs)} schedules, each width's exact one included")
+    key, budget = CORE_BUDGET
+    n, (borders, samples) = 4, CORE_SWEEP[4]
+    borders = borders[-2:]  # the two widest borders, the cheapest
+    chosen = dse.select_border(n, borders, max_err=budget, err_key=key, n_samples=samples,
+                               chunk=16384, cost_fn=energy.literal_energy_proxy,
+                               device=device, **CORE_SEARCH)
+    ok = [p for p in sweep[n] if p.border in borders and abs(p.measured[key]) <= budget]
+    want = min(ok, key=lambda p: (p.energy, p.border)).border if ok else None
+    if chosen != want:
+        raise AssertionError(f"[core] (d) select_border gave {chosen}, the sweep {want}")
+    out["d_s"] = time.perf_counter() - t3
+    log(f"[core] (d) select_border({n}, {borders}, |{key}| <= {budget}) = {chosen}; DSE "
+        f"{out['d_s']:.1f}s ({card})")
+
+    # (e) a third evaluator: the CUDA replay kernel over every int8 pair
+    t4 = time.perf_counter()
+    ia = torch.arange(256, dtype=torch.int32, device=device).reshape(256, 1)
+    ib = torch.arange(256, dtype=torch.int32, device=device).reshape(1, 256)
+    xb, yb = lut._int8_operand_bits()
+    for label, sched in (("exact", reduction.get_schedule(2, None)),
+                         (f"border {BORDER}", reduction.get_schedule(2, BORDER)),
+                         ("DSE candidate", dse.materialize(cand))):
+        inj = (get_injector(2, sched.border) if sched is reduction.get_schedule(2, sched.border)
+               else compile_injector(sched))
+        kernel = inject_replay_matmul(inj, ia, ib).cpu().numpy().astype(np.int64)
+        lo, hi = engine.compile_schedule(sched, device).evaluate_split(xb, yb)
+        products = (lo + (hi << 32)).reshape(256, 256)
+        if not (np.array_equal(products, kernel)
+                and np.array_equal(products, dse.lut_from_schedule(sched))):
+            raise AssertionError(f"[core] (e) {label}: engine, replay kernel and numpy table "
+                                 f"disagree")
+    out["e_s"] = time.perf_counter() - t4
+    log(f"[core] (e) the engine's products equal the replay kernel's and the numpy table "
+        f"over all 65536 int8 pairs: exact, border {BORDER}, the DSE candidate "
+        f"({out['e_s']:.1f}s; {card})")
+    log("[core] seconds: " + json.dumps({k: round(v, 3) for k, v in out.items()
+                                         if isinstance(v, float)}) + f" ({card})")
+    return out
+
+
 def chunked_prefill(device, card: str, cfg, params) -> None:
     """One full-width gemma3-1b attention layer prefilled at S = 16384 under
     rank 0, its first window layer (512) and its first global layer: the
@@ -3631,7 +3934,8 @@ def profile_serve(device, card: str, cfg, params, prompts, gen: int, capacity: i
 
 # the phases ``--only`` runs, each on its own after the build
 ONLY_PHASES = {"dense": lambda device, card: phase_dense_rest(device, card),
-               "conformance": lambda device, card: phase_conformance(device)}
+               "conformance": lambda device, card: phase_conformance(device),
+               "core": lambda device, card: phase_core(device, card)}
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3750,6 +4054,9 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.perf_counter()
     conformance = phase_conformance(device)
     log(f"[conformance] phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_core(device, card)
+    log(f"[core] phase {time.perf_counter() - t0:.1f}s")
 
     src = "src/repro_torch/kernels/amr_matmul/csrc/"
     # the gemma-2b decode shape each AMR kernel spends most time on at border

@@ -1,39 +1,30 @@
-"""Registered DSE candidates as artifacts the numerics consume.
+"""Materialize DSE assignments into artifacts the rest of the system consumes.
 
-The port of the part of the JAX package's ``core/dse/export.py`` that the
-inject audit needs:
+The port of the JAX package's ``core/dse/export.py``.
 
-* ``ColumnChoice`` and ``materialize_choices``: a whole-multiplier
-  assignment's recorded decisions (the cells of each approximate or border
-  column with at least one FA, in the schedule builder's order) replayed
-  through ``reduction.build_schedule``'s assigner into a wired
-  ``reduction.Schedule``, as JAX's ``materialize`` does with a
-  ``MultiplierAssignment`` (the search that makes one is not ported);
-* ``lut_from_schedule``: the (256, 256) int32 product table of a 2-digit
-  schedule in ``lut.build_int8_lut``'s layout.  The JAX package evaluates
-  it through its compiled engine; the port through the numpy
-  ``reduction.evaluate_split``, never through the circuit replay of
-  ``core/engine``, so the table is independent of what the audit checks.
+``materialize`` turns a ``MultiplierAssignment`` (a decision record from the
+whole-multiplier search) into a real ``reduction.Schedule`` by replaying the
+recorded choices through ``reduction.build_schedule``'s pluggable assigner —
+so the exported schedule has genuine wiring, feeds ``core.engine``'s
+replay, metrics, and the energy model unchanged, and its bookkeeping is
+asserted bit-identical to the search's (``expected_error`` must round-trip
+exactly or the export raises).  ``materialize_choices`` rebuilds a schedule
+from recorded decisions alone (``ColumnChoice``s, or anything with their
+fields), as a recorded candidate such as ``chip_smoke.DSE_CANDIDATE`` is.
+
+``lut_from_schedule`` closes the loop to the kernel path: for a 2-digit
+schedule it produces the 256x256 int32 product table in the exact layout of
+``lut.build_int8_lut``.  The JAX package evaluates it through its compiled
+engine; the port through the numpy ``reduction.evaluate_split``, never
+through the circuit replay of ``core/engine``, so the table that the inject
+audit holds the replay to is independent of the replay.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import numpy as np
 
-from .. import lut, reduction
-
-__all__ = ["ColumnChoice", "materialize_choices", "lut_from_schedule"]
-
-
-class ColumnChoice(NamedTuple):
-    """Recorded decision: the cells assigned to one column of one stage."""
-
-    stage: int
-    p: int
-    pos_cnt: int
-    neg_cnt: int
-    cells: tuple[tuple[str, int, int], ...]
+from .. import reduction
+from .multiplier import MultiplierAssignment
 
 
 class _ReplayAssigner:
@@ -64,11 +55,29 @@ class _ReplayAssigner:
 
 
 def materialize_choices(n_digits: int, border: int | None, choices) -> reduction.Schedule:
-    """Recorded decisions (``ColumnChoice``s, or anything with their fields)
-    -> a wired schedule; raises where they do not fit the builder's columns."""
+    """Recorded decisions -> a wired schedule; raises ``AssertionError``
+    where they do not fit ``reduction.build_schedule``'s columns."""
     replayer = _ReplayAssigner(choices)
     sched = reduction.build_schedule(n_digits, border, assigner=replayer)
     replayer.finish()
+    return sched
+
+
+def materialize(assignment: MultiplierAssignment) -> reduction.Schedule:
+    """Recorded assignment -> fully wired ``reduction.Schedule``.
+
+    The returned schedule is NOT entered in the ``get_schedule`` cache (that
+    cache is reserved for the default greedy policy); compile it with
+    ``engine.compile_schedule`` / ``engine.compile_candidates`` for batched
+    evaluation.  Raises ``AssertionError`` if the wired schedule's exact
+    expected error disagrees with the search's — the count-level
+    simulation and the wired schedule must agree bit for bit.
+    """
+    sched = materialize_choices(assignment.n_digits, assignment.border, assignment.choices)
+    if sched.expected_error != assignment.expected_error:
+        raise AssertionError(
+            f"expected-error mismatch after export: search "
+            f"{assignment.expected_error} vs schedule {sched.expected_error}")
     return sched
 
 
@@ -77,4 +86,6 @@ def lut_from_schedule(schedule: reduction.Schedule) -> np.ndarray:
     (index = value + 128), by the numpy replay over all 2^16 int8 pairs."""
     if schedule.n_digits != 2:
         raise ValueError("int8 LUT export requires a 2-digit schedule")
+    from .. import lut  # deferred: lut -> amrmul -> reduction -> dse
+
     return lut.schedule_table(schedule)

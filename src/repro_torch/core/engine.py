@@ -1,31 +1,43 @@
-"""The injection half of the JAX package's ``core/engine.py``.
+"""The JAX package's ``core/engine.py`` in torch: the schedule replay.
 
 A ``reduction.Schedule`` is lowered once (``lower_schedule``, numpy, a copy
 of the JAX package's lowering) into dense per-stage replay constants: PP
 gate minterm masks, per-cell sum/carry minterm masks, wire routing and the
-final bits' weights.  ``CompiledInjector`` replays those constants with
+final bits' weights.  ``LoweredReplay.replay_stored`` replays them with
 torch ops in **bit-sliced** form, every wire a 32-bit word whose bits are 32
-independent operand pairs, and so computes the exact AMR-MUL product of any
-int8 operand pair for ANY schedule, DSE candidates included, without a
-256x256 table.  The replay is the plain version of the
-``kernels/inject_replay`` CUDA kernel, which reads the same lowering.
+independent operand pairs.  Two callers share that one replay:
+
+* the host-facing engine (``CompiledSchedule``, ``get_engine``,
+  ``evaluate_split_many``, ``CandidateBatch``): stored operand bits from
+  numpy are packed into lanes on the host (``_pack_lanes``) and moved to
+  the engine's device once; each schedule's replay then runs on them in
+  turn (the JAX package's "one fused XLA dispatch").  The final bits are
+  summed into 16-bit position limbs by a float64 product on the device
+  (exact: the weights are powers of two below 2**16, the bits 0 or 1, a
+  limb's sum far below 2**53; torch has no integer matmul on CUDA), and
+  the limbs are combined on the host into the exact ``(lo, hi)`` int64
+  split (value = lo + hi * 2**32) of ``reduction.evaluate_split``, bit for
+  bit.  The device is explicit, ``"cuda"`` by default
+  (``device.resolve_device`` raises without a card);
+* ``CompiledInjector``: the exact AMR-MUL product of any int8 operand pair
+  for ANY schedule, DSE candidates included, without a 256x256 table.  Its
+  replay is the plain version of the ``kernels/inject_replay`` CUDA
+  kernel, which reads the same lowering.
 
 Words are int32 tensors (torch has no general uint32 arithmetic): the bit
 patterns are those of the JAX package's uint32 words, and ``>>`` followed
 by ``& 1`` extracts a bit whatever the sign.
-
-Not ported: ``CompiledSchedule``, ``evaluate_split_many``, the candidate
-batch and the numpy lane packer that feeds them (the host-facing
-Monte-Carlo engine).
 """
 from __future__ import annotations
 
 import dataclasses
+import sys
 from functools import lru_cache
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from . import mrsd, ppgen, reduction
 from .cells import CELLS
 
@@ -181,6 +193,8 @@ def _replay_consts(lowered: LoweredReplay, device: torch.device) -> dict:
                    for st in lowered.stages],
         "final_ids": t(lowered.final_ids),
         "bit_weights": t(lowered.bit_weights),
+        "limb_weights": t(lowered.weights.T, torch.float64),   # (n_limbs, n_final)
+        "offsets": t(lowered.offsets),
     }
 
 
@@ -219,6 +233,194 @@ def lower_schedule(schedule: reduction.Schedule) -> LoweredReplay:
     )
 
 
+# --------------------------------------------------------------------------
+# The host-facing engine: numpy operand bits in, exact (lo, hi) splits out
+# --------------------------------------------------------------------------
+
+def _pack_lanes(bits: np.ndarray) -> np.ndarray:
+    """(batch, n_bits) {0,1} -> bit-sliced (n_bits, words) uint32.
+
+    Sample ``w * 32 + k`` lives in bit ``k`` of word ``w`` of each wire row.
+    The batch is zero-padded up to a whole number of 32-sample words.
+    """
+    bits = np.ascontiguousarray(bits.T, dtype=np.uint8)
+    pad = (-bits.shape[1]) % _LANE_BITS
+    if pad:
+        bits = np.pad(bits, ((0, 0), (0, pad)))
+    if sys.byteorder == "little":
+        packed = np.packbits(bits, axis=1, bitorder="little")
+        return np.ascontiguousarray(packed).view(np.uint32)
+    words = np.zeros((bits.shape[0], bits.shape[1] // _LANE_BITS), dtype=np.uint32)
+    for k in range(_LANE_BITS):  # big-endian fallback: explicit lane packing
+        words |= bits[:, k::_LANE_BITS].astype(np.uint32) << np.uint32(k)
+    return words
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CompiledSchedule:
+    """A design point lowered to dense tensors, replayed on ``device``.
+
+    ``evaluate_split`` is bit-exact against ``reduction.evaluate_split``
+    (held by tests/test_torch_core_engine.py across design points).
+    """
+
+    lowered: LoweredReplay
+    device: torch.device
+
+    @property
+    def schedule(self) -> reduction.Schedule:
+        return self.lowered.schedule
+
+    @property
+    def n_limbs(self) -> int:
+        return self.lowered.n_limbs
+
+    def limbs(self, xw: torch.Tensor, yw: torch.Tensor) -> torch.Tensor:
+        """(n_opbits, words) int32 lane words -> (n_limbs, words * 32) int64
+        limbs on the words' device, the polarity offsets taken off."""
+        stored = self.lowered.replay_stored(xw, yw)              # (n_final, words)
+        c = _replay_consts(self.lowered, stored.device)
+        shifts = torch.arange(_LANE_BITS, device=stored.device, dtype=torch.int32)
+        bits = ((stored[:, :, None] >> shifts) & 1).to(torch.float64)
+        limbs = c["limb_weights"] @ bits.reshape(bits.shape[0], -1)  # exact in float64
+        return limbs.to(torch.int64) - c["offsets"][:, None]
+
+    def evaluate_split(
+        self, xbits: np.ndarray, ybits: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """(batch, 5N) stored operand bits -> exact (lo, hi) int64 split."""
+        return _evaluate((self,), xbits, ybits)[0]
+
+    def evaluate(self, xbits: np.ndarray, ybits: np.ndarray) -> np.ndarray:
+        """Float64 result value (exact only below ~2**53, as the numpy path)."""
+        return reduction.split_to_float(*self.evaluate_split(xbits, ybits))
+
+
+def compile_schedule(schedule: reduction.Schedule,
+                     device: str | torch.device = "cuda") -> CompiledSchedule:
+    """Lower a schedule to dense tensors, replayed on ``device``."""
+    return CompiledSchedule(lower_schedule(schedule), resolve_device(device))
+
+
+def _combine_limbs(limbs: np.ndarray, n_limbs: int, batch: int) -> tuple[np.ndarray, np.ndarray]:
+    """(n_limbs, padded_batch) integer limbs -> exact (lo, hi) int64 split."""
+    limbs = limbs.astype(np.int64)[:, :batch]
+    lo = limbs[0].copy()
+    if n_limbs > 1:
+        lo += limbs[1] * (1 << _LIMB_BITS)
+    hi = np.zeros_like(lo)
+    for limb in range(2, n_limbs):
+        hi += limbs[limb] * (1 << (_LIMB_BITS * (limb - 2)))
+    return lo, hi
+
+
+def _evaluate(engines, xbits: np.ndarray, ybits: np.ndarray) -> list:
+    """Pack and move a shared operand batch once, replay every engine on it
+    in turn, then read every engine's limbs back: [(lo, hi), ...]."""
+    xw, yw = (torch.from_numpy(_i32(_pack_lanes(b))).to(engines[0].device)
+              for b in (xbits, ybits))
+    outs = [e.limbs(xw, yw) for e in engines]
+    return [_combine_limbs(limbs.cpu().numpy(), e.n_limbs, xbits.shape[0])
+            for e, limbs in zip(engines, outs)]
+
+
+def get_engine(n_digits: int, border: int | None,
+               device: str | torch.device = "cuda") -> CompiledSchedule:
+    """Process-level compiled-artifact cache, keyed on the design point and
+    the device."""
+    return _get_engine(n_digits, border, resolve_device(device))
+
+
+@lru_cache(maxsize=64)
+def _get_engine(n_digits: int, border: int | None, device: torch.device) -> CompiledSchedule:
+    return compile_schedule(reduction.get_schedule(n_digits, border), device)
+
+
+def evaluate_split_many(
+    n_digits: int, borders: tuple, xbits: np.ndarray, ybits: np.ndarray,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Several approximate borders on one shared batch.
+
+    The operand batch is bit-sliced into lanes and moved to the device ONCE;
+    every border's cached replay then runs on it in turn.  Returns
+    ``{border: (lo, hi)}`` with the same exact int64 split as
+    ``CompiledSchedule.evaluate_split``.
+    """
+    borders = tuple(borders)
+    engines = tuple(get_engine(n_digits, b, device) for b in borders)
+    return dict(zip(borders, _evaluate(engines, xbits, ybits)))
+
+
+@dataclasses.dataclass(frozen=True)
+class CandidateBatch:
+    """Several candidate schedules evaluated on one shared operand batch.
+
+    The cached ``evaluate_split_many`` path is keyed on ``(n_digits,
+    border)`` design points; DSE exploration instead produces *ad-hoc*
+    schedules (alternative cell assignments for the same design point) that
+    have no cache key.  ``compile_candidates`` lowers each one once, so a
+    Monte-Carlo sweep over many frontier candidates packs and moves each
+    operand chunk once for all of them.  Reuse one ``CandidateBatch``
+    across chunks.
+    """
+
+    engines: tuple[CompiledSchedule, ...]
+
+    def evaluate_split(
+        self, xbits: np.ndarray, ybits: np.ndarray
+    ) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Shared operand batch -> per-candidate exact (lo, hi) splits."""
+        return _evaluate(self.engines, xbits, ybits)
+
+
+def compile_candidates(schedules, device: str | torch.device = "cuda") -> CandidateBatch:
+    """Candidate schedules (or pre-compiled engines) on one device.
+
+    Accepts any mix of ``reduction.Schedule`` and ``CompiledSchedule``; all
+    candidates must share the operand width (same ``n_digits``) so a single
+    bit-packed batch feeds every replay, and a compiled one must sit on
+    ``device``.
+    """
+    device = resolve_device(device)
+    engines = tuple(
+        s if isinstance(s, CompiledSchedule) else compile_schedule(s, device)
+        for s in schedules
+    )
+    if len({e.schedule.n_digits for e in engines}) > 1:
+        raise ValueError("candidates must share n_digits (one operand batch)")
+    if any(e.device != device for e in engines):
+        raise ValueError(f"compiled candidates must sit on {device}")
+    return CandidateBatch(engines)
+
+
+def evaluate_candidates_split(
+    candidates, xbits: np.ndarray, ybits: np.ndarray, device: str | torch.device = "cuda",
+) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Candidate schedules on a shared batch.
+
+    ``candidates`` is a ``CandidateBatch`` (its own device) or a sequence of
+    schedules, compiled on the spot for ``device`` -- prefer building the
+    batch once via ``compile_candidates`` when evaluating several chunks.
+    """
+    if not isinstance(candidates, CandidateBatch):
+        candidates = compile_candidates(candidates, device)
+    return candidates.evaluate_split(xbits, ybits)
+
+
+def evaluate_digits_split(
+    n_digits: int, border: int | None, x_digits: np.ndarray, y_digits: np.ndarray,
+    device: str | torch.device = "cuda",
+) -> tuple[np.ndarray, np.ndarray]:
+    """Convenience: digit arrays -> exact (lo, hi) via the cached engine."""
+    xb = ppgen.flatten_operand_bits(x_digits)
+    yb = ppgen.flatten_operand_bits(y_digits)
+    return get_engine(n_digits, border, device).evaluate_split(xb, yb)
+
+
+# --------------------------------------------------------------------------
+# Error injection: the replay as a product evaluator over int8 operands
+# --------------------------------------------------------------------------
 def _int8_value_bit_table(n_digits: int) -> np.ndarray:
     """(256, 5N) stored operand bits of every int8 value (index = v + 128).
 
@@ -352,3 +554,14 @@ def compile_injector(schedule: reduction.Schedule) -> CompiledInjector:
 def get_injector(n_digits: int, border: int | None) -> CompiledInjector:
     """Process-level injector cache for the default design points."""
     return compile_injector(reduction.get_schedule(n_digits, border))
+
+
+def inject_products(schedule, ia: torch.Tensor, ib: torch.Tensor) -> torch.Tensor:
+    """Exact AMR products of int8 operand indices (value + 128).
+
+    ``schedule`` is a ``CompiledInjector`` or a raw ``reduction.Schedule``
+    (compiled on the spot -- hold a ``CompiledInjector`` when calling from a
+    hot loop; ``numerics.injection`` keeps the policy-level cache).
+    """
+    inj = schedule if isinstance(schedule, CompiledInjector) else compile_injector(schedule)
+    return inj.products(ia, ib)

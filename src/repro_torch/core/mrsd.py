@@ -36,14 +36,6 @@ DIGIT_MIN = -16
 DIGIT_MAX = 15
 
 
-def n_pos_bits(n_digits: int) -> int:
-    return BITS_PER_DIGIT * n_digits
-
-
-def n_neg_bits(n_digits: int) -> int:
-    return n_digits
-
-
 def pos_positions(n_digits: int) -> np.ndarray:
     """Bit position (log2 weight) of each posibit."""
     return np.arange(4 * n_digits, dtype=np.int64)
@@ -100,11 +92,6 @@ def decode(digits: np.ndarray, dtype=np.float64) -> np.ndarray:
     return (digits.astype(np.float64) * w).sum(-1).astype(dtype)
 
 
-def decode_int(digits) -> int:
-    """Exact Python-int value of a single digit vector (arbitrary precision)."""
-    return sum(int(d) * 16**k for k, d in enumerate(np.asarray(digits).tolist()))
-
-
 def digits_to_bits(digits: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Digit array -> (posibits, stored negabits).
 
@@ -125,28 +112,6 @@ def digits_to_bits(digits: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return pos, neg
 
 
-def bits_to_digits(pos: np.ndarray, neg: np.ndarray) -> np.ndarray:
-    """(posibits, stored negabits) -> digit array (..., N)."""
-    pos = np.asarray(pos, dtype=np.int64)
-    neg = np.asarray(neg, dtype=np.int64)
-    n = neg.shape[-1]
-    p = pos.reshape(pos.shape[:-1] + (n, BITS_PER_DIGIT))
-    weights = 1 << np.arange(BITS_PER_DIGIT, dtype=np.int64)
-    nibble = (p * weights).sum(-1)
-    return nibble - 16 * (1 - neg)
-
-
-def bits_value(pos: np.ndarray, neg: np.ndarray, dtype=np.float64) -> np.ndarray:
-    """Arithmetic value of a flat bit collection (float64 for wide operands)."""
-    pos = np.asarray(pos, dtype=np.float64)
-    neg = np.asarray(neg, dtype=np.float64)
-    npb = pos.shape[-1]
-    nn = neg.shape[-1]
-    wp = 2.0 ** np.arange(npb)
-    wn = 2.0 ** (4 * (np.arange(nn) + 1))
-    return ((pos * wp).sum(-1) + ((neg - 1.0) * wn).sum(-1)).astype(dtype)
-
-
 def random_digits(rng: np.random.Generator, n_digits: int, batch: int) -> np.ndarray:
     """Uniform random digit vectors over the full redundant digit set [-16, 15].
 
@@ -154,9 +119,3 @@ def random_digits(rng: np.random.Generator, n_digits: int, batch: int) -> np.nda
     (§IV: 50K/500K/1M random inputs).
     """
     return rng.integers(DIGIT_MIN, DIGIT_MAX + 1, size=(batch, n_digits), dtype=np.int64)
-
-
-def random_values(rng: np.random.Generator, n_digits: int, batch: int) -> np.ndarray:
-    """Uniform random integer values over the representable range (int64-safe widths)."""
-    lo, hi = min_value(n_digits), max_value(n_digits)
-    return rng.integers(lo, hi + 1, size=(batch,), dtype=np.int64)

@@ -102,12 +102,3 @@ def eval_pp_bits(layout: PPLayout, xbits: np.ndarray, ybits: np.ndarray) -> np.n
     m = g == G_NOR
     out[..., m] = (1 - x[..., m]) & (1 - y[..., m])
     return out
-
-
-def pp_value(layout: PPLayout, pp_bits: np.ndarray) -> np.ndarray:
-    """Arithmetic value of a PP bit collection (float64; oracle/testing)."""
-    w = 2.0 ** layout.position.astype(np.float64)
-    stored = pp_bits.astype(np.float64)
-    # posibit value = stored; negabit value = stored - 1
-    offs = (layout.polarity.astype(np.float64) * w).sum()
-    return (stored * w).sum(-1) - offs

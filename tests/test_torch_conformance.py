@@ -8,8 +8,10 @@ package's, on the CPU.
 * ``make_inputs`` draws the same arrays in both packages (tokens, targets,
   and the audio and VLM extras in bfloat16).
 * ``lut_from_schedule`` (the port's numpy replay) equals the JAX package's
-  bit for bit on the default schedule at border 8 and on a DSE candidate;
-  ``chip_smoke.DSE_CANDIDATE``'s recorded decisions are that candidate's.
+  bit for bit on the default schedule at border 8 and on a DSE candidate,
+  found by the port's own ``search_assignments`` and ``materialize``;
+  its recorded decisions are the JAX package's search's and
+  ``chip_smoke.DSE_CANDIDATE``'s.
 * ``AuditTrace`` records as the JAX one does.  One call site under
   amr_inject at (4, 32) @ (32, 16): 0 grid steps from the oracle, and
   ``compare="exact"`` records positive error mass.  Negative control: the
@@ -49,6 +51,8 @@ from repro_torch.conformance import matrix as tmatrix
 from repro_torch.configs import families as tfamilies
 from repro_torch.core import reduction as treduction
 from repro_torch.core.dse import ColumnChoice, lut_from_schedule, materialize_choices
+from repro_torch.core.dse import materialize as tmaterialize
+from repro_torch.core.dse import search_assignments as tsearch_assignments
 from repro_torch.numerics import AMRNumerics as TN
 from repro_torch.numerics import AuditTrace, approx_matmul, get_mode, injection, mode_names
 from repro_torch.numerics import numerics_scope
@@ -69,11 +73,17 @@ def _chip_smoke():
 
 @pytest.fixture(scope="module")
 def candidate():
-    """The JAX package's DSE candidate (as tests/test_torch_inject.py
-    builds it) and the port's schedule from its recorded decisions."""
-    [cand] = search_assignments(2, 8, k=1, beam_width=8, branch_cap=4, max_nodes=2000)
-    choices = [ColumnChoice(c.stage, c.p, c.pos_cnt, c.neg_cnt, c.cells) for c in cand.choices]
-    return materialize(cand), materialize_choices(2, 8, choices), choices
+    """A DSE candidate found by the port's own search and materialized by
+    the port, the JAX package's schedule from the JAX package's search (as
+    tests/test_torch_inject.py builds it, the reference), and the port's
+    recorded decisions."""
+    search = dict(k=1, beam_width=8, branch_cap=4, max_nodes=2000)
+    [cand] = tsearch_assignments(2, 8, **search)
+    [jcand] = search_assignments(2, 8, **search)
+    assert ([dataclasses.astuple(c) for c in cand.choices]
+            == [dataclasses.astuple(c) for c in jcand.choices])
+    assert cand.expected_error == jcand.expected_error
+    return materialize(jcand), tmaterialize(cand), list(cand.choices)
 
 
 # ------------------------------------------------------------ the matrix
@@ -123,7 +133,10 @@ def test_lut_from_schedule_matches_jax(candidate):
 
 
 def test_chip_smoke_candidate_is_the_jax_candidate(candidate):
-    assert [tuple(c) for c in candidate[2]] == [tuple(c) for c in _chip_smoke().DSE_CANDIDATE]
+    recorded = _chip_smoke().DSE_CANDIDATE
+    assert [dataclasses.astuple(c) for c in candidate[2]] == [tuple(c) for c in recorded]
+    rebuilt = materialize_choices(2, 8, [ColumnChoice(*c) for c in recorded])
+    assert np.array_equal(lut_from_schedule(rebuilt), lut_from_schedule(candidate[1]))
     with pytest.raises(AssertionError, match="desync"):
         materialize_choices(2, 8, list(candidate[2])[1:])
 
